@@ -6,7 +6,7 @@ Counterpart of the reference's
 ``find_mu_opt/find_mu_opt.py`` scripts (driver re-built per mu, results
 fed to ``analysis.thermal``).
 
-    python examples/ftafqmc/scan_chem_pot.py [--tpu]
+    python examples/ftafqmc/scan_chem_pot.py [--gpu]
 """
 
 import os
@@ -18,17 +18,17 @@ sys.path.insert(0, os.path.abspath(os.path.join(
 
 import jax
 
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from pauxy_tpu.analysis import thermal as thermal_analysis
-from pauxy_tpu.models import make_hubbard
-from pauxy_tpu.models.thermal_trial import make_one_body_trial
-from pauxy_tpu.qmc import QMCOpts
-from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
+from pauxy_jax.analysis import thermal as thermal_analysis
+from pauxy_jax.models import make_hubbard
+from pauxy_jax.models.thermal_trial import make_one_body_trial
+from pauxy_jax.qmc import QMCOpts
+from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
 
 
 def main():

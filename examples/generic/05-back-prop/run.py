@@ -18,17 +18,17 @@ sys.path.insert(0, os.path.abspath(os.path.join(
 
 import jax
 
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from pauxy_tpu.analysis.extraction import extract_rdm
-from pauxy_tpu.estimators import ci
-from pauxy_tpu.models.trial import trial_from_orbitals
-from pauxy_tpu.qmc import AFQMC, QMCOpts
-from pauxy_tpu.utils.sgto import hydrogen_chain_afqmc
+from pauxy_jax.analysis.extraction import extract_rdm
+from pauxy_jax.estimators import ci
+from pauxy_jax.models.trial import trial_from_orbitals
+from pauxy_jax.qmc import AFQMC, QMCOpts
+from pauxy_jax.utils.sgto import hydrogen_chain_afqmc
 
 R, NELEC = 1.8, (2, 2)
 

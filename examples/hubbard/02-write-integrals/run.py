@@ -20,20 +20,20 @@ sys.path.insert(0, os.path.abspath(os.path.join(
 
 import jax
 
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from pauxy_tpu.estimators import ci
-from pauxy_tpu.models import make_hubbard
-from pauxy_tpu.models.trial import uhf_trial
-from pauxy_tpu.qmc import QMCOpts
-from pauxy_tpu.qmc.calc import get_driver
-from pauxy_tpu.utils.qmcpack import modified_cholesky, write_hamiltonian
-from pauxy_tpu.utils.transfer import to_host
-from pauxy_tpu.utils.wavefunction import write_qmcpack_wfn
+from pauxy_jax.estimators import ci
+from pauxy_jax.models import make_hubbard
+from pauxy_jax.models.trial import uhf_trial
+from pauxy_jax.qmc import QMCOpts
+from pauxy_jax.qmc.calc import get_driver
+from pauxy_jax.utils.qmcpack import modified_cholesky, write_hamiltonian
+from pauxy_jax.utils.transfer import to_host
+from pauxy_jax.utils.wavefunction import write_qmcpack_wfn
 
 NX, NY, U, NELEC = 3, 1, 4.0, (2, 2)
 

@@ -24,7 +24,9 @@ jax.config.update("jax_enable_x64", True)
 # backend_compile_and_load late in the run. Dropping live executables
 # between modules bounds that growth; the on-disk compilation cache makes
 # the re-compiles cheap across modules and across suite runs.
-jax.config.update("jax_compilation_cache_dir", "/tmp/pauxy_tpu_jax_cache")
+from pauxy_jax import config as _config  # noqa: E402
+
+_config.enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import pytest  # noqa: E402

@@ -12,9 +12,9 @@ import os
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.models.trial import trial_from_orbitals
-from pauxy_tpu.qmc import AFQMC, QMCOpts
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.models.trial import trial_from_orbitals
+from pauxy_jax.qmc import AFQMC, QMCOpts
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN_4X4 = os.path.join(DATA, "hubbard4x4_uhf_continuous.npz")
@@ -186,7 +186,7 @@ def test_ueg_vs_reference_golden(tmp_path):
     if not os.path.exists(path):
         pytest.skip("golden data missing; run tools/oracle/make_golden.py")
     g = np.load(path)
-    from pauxy_tpu.models import make_ueg, rhf_identity_trial
+    from pauxy_jax.models import make_ueg, rhf_identity_trial
 
     ham = make_ueg(nup=int(g["nup"]), ndown=int(g["ndown"]),
                    rs=float(g["rs"]), ecut=float(g["ecut"]))
@@ -218,7 +218,7 @@ def test_generic_vs_reference_golden(tmp_path):
     if not os.path.exists(path):
         pytest.skip("golden data missing; run tools/oracle/make_golden.py")
     g = np.load(path)
-    from pauxy_tpu.models.generic import make_generic
+    from pauxy_jax.models.generic import make_generic
 
     h1e = np.asarray(g["h1e"])
     nmo = h1e.shape[-1]
@@ -248,7 +248,7 @@ def test_generic_vs_reference_golden(tmp_path):
 @pytest.mark.driver
 def test_profiler_trace_capture(tmp_path):
     """profile_dir captures a JAX profiler trace of the run (SURVEY 5:
-    tracing subsystem; TPU analogue of the reference's timer table)."""
+    tracing subsystem; counterpart of the reference's timer table)."""
     import glob
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
@@ -293,7 +293,7 @@ def test_estimates_filename_overwrite_false(tmp_path, monkeypatch):
     (estimators/handler.py:60-69): overwrite=false auto-increments the
     index past existing files (the scan workflows keep one file per
     parameter point this way)."""
-    from pauxy_tpu.utils.io import resolve_estimates_filename
+    from pauxy_jax.utils.io import resolve_estimates_filename
 
     monkeypatch.chdir(tmp_path)
     assert resolve_estimates_filename({}) == "estimates.0.h5"

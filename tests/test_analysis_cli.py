@@ -8,9 +8,9 @@ import sys
 import numpy as np
 import pytest
 
-from pauxy_tpu.analysis import blocking
-from pauxy_tpu.utils import qmcpack
-from pauxy_tpu.utils.testing import generate_hamiltonian
+from pauxy_jax.analysis import blocking
+from pauxy_jax.utils import qmcpack
+from pauxy_jax.utils.testing import generate_hamiltonian
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -113,7 +113,7 @@ def test_fcidump_generic_energy(tmp_path):
 
 @pytest.mark.driver
 def test_cli_end_to_end(tmp_path):
-    """bin/pauxy-tpu runs an input.json and produces analysable output."""
+    """bin/pauxy-jax runs an input.json and produces analysable output."""
     inp = {
         "model": {"name": "Hubbard", "nx": 3, "ny": 3, "nup": 3, "ndown": 3,
                   "U": 4.0},
@@ -130,7 +130,7 @@ def test_cli_end_to_end(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run(
-        [sys.executable, os.path.join(REPO, "bin", "pauxy-tpu"),
+        [sys.executable, os.path.join(REPO, "bin", "pauxy-jax"),
          str(path), "--cpu"],
         capture_output=True, text=True, env=env, cwd=str(tmp_path),
         timeout=300,
@@ -150,7 +150,7 @@ def test_cli_end_to_end(tmp_path):
 
 @pytest.mark.driver
 def test_calc_thermal_dispatch(tmp_path):
-    from pauxy_tpu.qmc.calc import setup_calculation
+    from pauxy_jax.qmc.calc import setup_calculation
 
     driver = setup_calculation({
         "model": {"name": "Hubbard", "nx": 2, "ny": 2, "nup": 2, "ndown": 2,
@@ -167,8 +167,8 @@ def test_calc_thermal_dispatch(tmp_path):
 @pytest.mark.driver
 def test_checkpoint_resume(tmp_path):
     """Restart reproduces the exact continuation of the original run."""
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
@@ -197,7 +197,7 @@ def test_checkpoint_resume(tmp_path):
 
 @pytest.mark.unit
 def test_autocorr_reblock():
-    from pauxy_tpu.analysis.autocorr import integrated_time, reblock_by_autocorr
+    from pauxy_jax.analysis.autocorr import integrated_time, reblock_by_autocorr
 
     rng = np.random.default_rng(2)
     n, rho = 8192, 0.8
@@ -221,11 +221,11 @@ def test_rdm_and_correlation_analysis(tmp_path):
 
     import h5py
 
-    from pauxy_tpu.analysis.correlation import (average_correlation,
+    from pauxy_jax.analysis.correlation import (average_correlation,
                                                 correlation_function,
                                                 get_strip)
-    from pauxy_tpu.analysis.rdm import analyse_one_body, average_rdm
-    from pauxy_tpu.utils.io import H5EstimatorHelper
+    from pauxy_jax.analysis.rdm import analyse_one_body, average_rdm
+    from pauxy_jax.utils.io import H5EstimatorHelper
 
     m, nblocks, nbp = 4, 6, 5
     fn = str(tmp_path / "est.h5")
@@ -278,9 +278,9 @@ def test_rdm_and_correlation_analysis(tmp_path):
 def test_hubbard_fcidump_roundtrip(tmp_path):
     """fcidump() output parses back to the same T and U
     (systems/hubbard.py:106-148)."""
-    from pauxy_tpu.models import make_hubbard
-    from pauxy_tpu.models.hubbard import fcidump
-    from pauxy_tpu.utils.qmcpack import read_fcidump
+    from pauxy_jax.models import make_hubbard
+    from pauxy_jax.models.hubbard import fcidump
+    from pauxy_jax.utils.qmcpack import read_fcidump
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=4, ny=1)
     fn = str(tmp_path / "FCIDUMP")
@@ -301,7 +301,7 @@ def test_hubbard_fcidump_roundtrip(tmp_path):
 def test_write_input_and_sys_info(tmp_path):
     import json
 
-    from pauxy_tpu.utils.io import get_sys_info, write_input
+    from pauxy_jax.utils.io import get_sys_info, write_input
 
     fn = str(tmp_path / "input.json")
     write_input(fn, "afqmc.h5", "wfn.h5", bp=True,
@@ -319,8 +319,8 @@ def test_write_input_and_sys_info(tmp_path):
 def test_scaled_temperature_conversion():
     """theta = T/T_F reduced units rescale beta and dt by 1/ef
     (options.py:5-19)."""
-    from pauxy_tpu.models.ueg import make_ueg
-    from pauxy_tpu.qmc.options import QMCOpts
+    from pauxy_jax.models.ueg import make_ueg
+    from pauxy_jax.qmc.options import QMCOpts
 
     ham = make_ueg(nup=7, ndown=7, rs=1.0, ecut=1.0)
     assert ham.ef > 0
@@ -338,9 +338,9 @@ def test_scaled_temperature_conversion():
 def test_timing_breakdown_and_phmsd_input(tmp_path, monkeypatch, capsys):
     """finalise() prints the per-phase table in split mode
     (afqmc.py:260-279) and JSON inputs build PHMSD trials."""
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
-    from pauxy_tpu.qmc.calc import get_driver
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
+    from pauxy_jax.qmc.calc import get_driver
 
     monkeypatch.chdir(tmp_path)
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=4, ny=1)
@@ -377,11 +377,11 @@ def test_analyse_estimates_and_ekt_ipea(tmp_path, monkeypatch):
     (``pauxy/analysis/blocking.py:292-362``)."""
     import h5py
 
-    from pauxy_tpu.analysis import blocking
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.trial import rhf_identity_trial
+    from pauxy_jax.analysis import blocking
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.trial import rhf_identity_trial
 
     # Generic run with BP + EKT Fock output.
     rng = np.random.default_rng(3)
@@ -426,8 +426,8 @@ def test_extract_raw_and_simple_cli(tmp_path, monkeypatch):
     import subprocess
     import sys as _sys
 
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
@@ -460,8 +460,8 @@ def test_extract_observable_itcf_selects_live_rows(tmp_path):
     import subprocess
     import sys as _sys
 
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=3, U=0.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
@@ -496,8 +496,8 @@ def test_mom_dist_cli(tmp_path):
     import subprocess
     import sys as _sys
 
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
@@ -529,10 +529,10 @@ def test_finite_temp_analysis_cli(tmp_path):
     import subprocess
     import sys as _sys
 
-    from pauxy_tpu.models import make_hubbard
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.qmc import QMCOpts
-    from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
+    from pauxy_jax.models import make_hubbard
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.qmc import QMCOpts
+    from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
     trial = make_one_body_trial(ham, beta=0.5, dt=0.05)
@@ -583,7 +583,7 @@ af.run(comm=comm, verbose=False)
     subprocess.run([_sys.executable, "-c", code], check=True, env=env,
                    cwd=tmp_path, capture_output=True)
 
-    from pauxy_tpu.analysis.extraction import (extract_mixed_estimates,
+    from pauxy_jax.analysis.extraction import (extract_mixed_estimates,
                                                get_metadata)
 
     df = extract_mixed_estimates(str(tmp_path / "ref_est.h5"))

@@ -9,12 +9,12 @@ import numpy as np
 import pytest
 import scipy.linalg
 
-from pauxy_tpu.estimators import back_prop
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.propagation import continuous as cont
-from pauxy_tpu.propagation.hubbard import make_hubbard_continuous
-from pauxy_tpu.qmc import AFQMC, QMCOpts
-from pauxy_tpu.walkers import init_walkers
+from pauxy_jax.estimators import back_prop
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.propagation import continuous as cont
+from pauxy_jax.propagation.hubbard import make_hubbard_continuous
+from pauxy_jax.qmc import AFQMC, QMCOpts
+from pauxy_jax.walkers import init_walkers
 
 
 @pytest.mark.unit
@@ -202,7 +202,7 @@ def test_bp_two_rdm_full_and_structure_factor(tmp_path):
         assert abs(e2 - en[b][2]) < 1e-6, (b, e2, en[b][2])
 
     # UEG structure factor flavor.
-    from pauxy_tpu.models import make_ueg, rhf_identity_trial
+    from pauxy_jax.models import make_ueg, rhf_identity_trial
 
     ueg = make_ueg(nup=2, ndown=2, rs=1.0, ecut=0.5)
     tueg = rhf_identity_trial(ueg)

@@ -9,12 +9,12 @@ import jax
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.parallel import mesh as pmesh
-from pauxy_tpu.qmc import AFQMC, QMCOpts
-from pauxy_tpu.utils.checkpoint import (load_walkers_sharded,
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.parallel import mesh as pmesh
+from pauxy_jax.qmc import AFQMC, QMCOpts
+from pauxy_jax.utils.checkpoint import (load_walkers_sharded,
                                         save_walkers_sharded)
-from pauxy_tpu.walkers import init_walkers
+from pauxy_jax.walkers import init_walkers
 
 NDEV = len(jax.devices())
 

@@ -6,9 +6,9 @@ import sys
 import numpy as np
 import pytest
 
-from pauxy_tpu.estimators import ci
-from pauxy_tpu.models import make_generic, make_hubbard
-from pauxy_tpu.utils.testing import generate_hamiltonian
+from pauxy_jax.estimators import ci
+from pauxy_jax.models import make_generic, make_hubbard
+from pauxy_jax.utils.testing import generate_hamiltonian
 
 HAVE_REF = os.path.isdir("/root/reference/pauxy")
 if HAVE_REF:
@@ -74,8 +74,8 @@ def test_fci_vs_reference_generic():
 def test_free_projection_converges_to_fci(tmp_path):
     """Free-projection AFQMC on a tiny Hubbard lattice approaches the FCI
     ground state (the reference's strongest physics check)."""
-    from pauxy_tpu.models.trial import free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models.trial import free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=4, ny=1)
     e_fci, _, _ = ci.simple_fci(ham)
@@ -98,8 +98,8 @@ def test_free_projection_converges_to_fci(tmp_path):
 def test_bose_fermi_fci_vs_reference_pinned():
     """Hubbard-Holstein bose-fermi FCI against the reference's pinned
     ground-state energies (``pauxy/estimators/tests/test_ci.py:19-52``)."""
-    from pauxy_tpu.estimators.ci import simple_fci_bose_fermi
-    from pauxy_tpu.models.hubbard_holstein import make_hubbard_holstein
+    from pauxy_jax.estimators.ci import simple_fci_bose_fermi
+    from pauxy_jax.models.hubbard_holstein import make_hubbard_holstein
 
     ham = make_hubbard_holstein(nup=1, ndown=1, U=0.0, nx=2, ny=1,
                                 w0=0.8, lmbda=0.5)
@@ -119,8 +119,8 @@ def test_one_rdm_from_fci():
     one-body energy matches the FCI kinetic expectation."""
     import numpy as np
 
-    from pauxy_tpu.estimators.ci import one_rdm_from_fci, simple_fci
-    from pauxy_tpu.models import make_hubbard
+    from pauxy_jax.estimators.ci import one_rdm_from_fci, simple_fci
+    from pauxy_jax.models import make_hubbard
 
     ham = make_hubbard(nup=2, ndown=2, U=0.0, nx=4, xpbc=False)
     ev, evec, basis = simple_fci(ham)

@@ -1,11 +1,11 @@
-"""Complex-from-real linear algebra vs numpy (the TPU backend has no complex
-decompositions; ops/clinalg.py must be exact on every backend)."""
+"""Complex-from-real linear algebra vs numpy (ops/clinalg.py must be exact
+on every backend)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.ops import clinalg
+from pauxy_jax.ops import clinalg
 
 
 def rand_c(rng, *shape):

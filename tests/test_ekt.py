@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.estimators import ekt
-from pauxy_tpu.utils.testing import generate_hamiltonian
+from pauxy_jax.estimators import ekt
+from pauxy_jax.utils.testing import generate_hamiltonian
 
 
 @pytest.mark.unit

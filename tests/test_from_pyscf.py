@@ -13,7 +13,7 @@ export), ``:67-123`` (write_wfn_mol).
 import numpy as np
 import pytest
 
-from pauxy_tpu.utils.from_pyscf import (
+from pauxy_jax.utils.from_pyscf import (
     DenseERIProvider,
     PyscfShellProvider,
     chunked_cholesky,
@@ -169,9 +169,9 @@ def test_multi_det_roundtrip(tmp_path):
 
 
 def test_multi_det_feeds_phmsd_trial(tmp_path):
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.multi_slater import phmsd_trial
-    from pauxy_tpu.utils.testing import generate_hamiltonian
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.multi_slater import phmsd_trial
+    from pauxy_jax.utils.testing import generate_hamiltonian
 
     ncas = 4
     nd = len(gen_occ_lists(ncas, 2))
@@ -190,7 +190,7 @@ def test_multi_det_feeds_phmsd_trial(tmp_path):
 
 
 def test_write_wfn_mol_rhf_roundtrip(tmp_path):
-    from pauxy_tpu.utils.wavefunction import read_orbitals
+    from pauxy_jax.utils.wavefunction import read_orbitals
 
     rng = np.random.default_rng(1)
     norb, na, nb = 6, 3, 3
@@ -206,7 +206,7 @@ def test_write_wfn_mol_rhf_roundtrip(tmp_path):
 
 
 def test_write_wfn_mol_uhf(tmp_path):
-    from pauxy_tpu.utils.wavefunction import read_orbitals
+    from pauxy_jax.utils.wavefunction import read_orbitals
 
     rng = np.random.default_rng(8)
     norb, na, nb = 5, 3, 2
@@ -227,7 +227,7 @@ def test_write_wfn_mol_uhf(tmp_path):
 def test_write_qmcpack_wfn_many_dets(tmp_path):
     """Numeric PsiT ordering survives D > 10 (lexicographic sort would
     interleave PsiT_10 before PsiT_2)."""
-    from pauxy_tpu.utils.wavefunction import read_orbitals, write_qmcpack_wfn
+    from pauxy_jax.utils.wavefunction import read_orbitals, write_qmcpack_wfn
 
     rng = np.random.default_rng(3)
     D, norb, na, nb = 12, 4, 2, 2

@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.estimators import local_energy as le
-from pauxy_tpu.models import make_generic, rhf_identity_trial
-from pauxy_tpu.models.trial import trial_from_orbitals
-from pauxy_tpu.ops import greens
-from pauxy_tpu.propagation import generic as gprop
-from pauxy_tpu.utils.testing import generate_hamiltonian, random_wavefunction
+from pauxy_jax.estimators import local_energy as le
+from pauxy_jax.models import make_generic, rhf_identity_trial
+from pauxy_jax.models.trial import trial_from_orbitals
+from pauxy_jax.ops import greens
+from pauxy_jax.propagation import generic as gprop
+from pauxy_jax.utils.testing import generate_hamiltonian, random_wavefunction
 
 REFERENCE = "/root/reference"
 HAVE_REF = os.path.isdir(os.path.join(REFERENCE, "pauxy"))
@@ -167,7 +167,7 @@ def test_propagator_setup_vs_reference():
 
 @pytest.mark.driver
 def test_generic_afqmc_runs(tmp_path):
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     h1e, chol, enuc, _ = generate_hamiltonian(6, (2, 2), seed=21)
     ham = make_generic((2, 2), h1e, chol, enuc)
@@ -190,9 +190,9 @@ def test_generic_energy_variants():
     Cholesky fast path (``pauxy/estimators/generic.py:34,130,293``)."""
     import jax
 
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.trial import rhf_identity_trial
-    from pauxy_tpu.ops import greens as gops
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.trial import rhf_identity_trial
+    from pauxy_jax.ops import greens as gops
 
     rng = np.random.default_rng(7)
     nmo, na = 8, 3
@@ -262,9 +262,9 @@ def test_generic_energy_variants():
 @pytest.mark.driver
 def test_generic_stochastic_ri_driver(tmp_path):
     """Driver smoke: stochastic-RI energy path inside the fused block."""
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.trial import rhf_identity_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.trial import rhf_identity_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     rng = np.random.default_rng(11)
     nmo, na = 8, 3
@@ -290,9 +290,9 @@ def test_freeze_core_preserves_ground_state():
     FCI ground-state energy when the core is energetically decoupled
     (block-diagonal Hamiltonian), and the frozen-core energy must equal the
     core determinant's energy (``pauxy/utils/from_pyscf.py:195-220``)."""
-    from pauxy_tpu.estimators import ci
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.utils.from_pyscf import freeze_core
+    from pauxy_jax.estimators import ci
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.utils.from_pyscf import freeze_core
 
     rng = np.random.default_rng(9)
     nc, ncas = 1, 3
@@ -322,66 +322,62 @@ def test_freeze_core_preserves_ground_state():
     assert float(e_act[0]) == pytest.approx(float(e_full[0]), abs=1e-10)
 
 
+def _taylor_numpy(vhs, phi, order=6):
+    """Truncated Taylor series exp(VHS) phi in float64 numpy."""
+    temp = acc = phi.astype(complex)
+    for k in range(1, order + 1):
+        temp = np.einsum("wpq,wqn->wpn", vhs, temp) / k
+        acc = acc + temp
+    return acc
+
+
 @pytest.mark.unit
-def test_taylor_pallas_matches_xla():
-    """Fused VMEM Taylor expm-apply (interpret) == the XLA fori_loop path;
-    the bf16 variant is within its documented error bound (SURVEY hard
-    part (f): selective precision lowering, error-controlled)."""
+@pytest.mark.parametrize("impl", ["xla", "xla_3m"])
+@pytest.mark.parametrize("w,m,n", [(6, 20, 7), (3, 33, 16)])
+def test_taylor_matches_numpy(impl, w, m, n):
+    """Both Taylor expm-apply variants (complex einsum, 3M Karatsuba split)
+    equal the float64 truncated series."""
     import jax.numpy as jnp
 
-    from pauxy_tpu.ops.taylor_pallas import apply_taylor_pallas
-    from pauxy_tpu.propagation.generic import apply_exponential_taylor
+    from pauxy_jax.propagation.generic import (
+        apply_exponential_taylor, apply_exponential_taylor_3m)
 
     rng = np.random.default_rng(0)
-    w, m, n = 6, 20, 7
-    vhs = 0.1 * (rng.normal(size=(w, m, m))
-                 + 1j * rng.normal(size=(w, m, m))).astype(np.complex64)
-    phi = (rng.normal(size=(w, m, n))
-           + 1j * rng.normal(size=(w, m, n))).astype(np.complex64)
-    ref = np.asarray(apply_exponential_taylor(jnp.asarray(vhs),
-                                              jnp.asarray(phi)))
-    out = np.asarray(apply_taylor_pallas(jnp.asarray(vhs), jnp.asarray(phi),
-                                         interpret=True))
-    scale = np.abs(ref).max()
-    assert np.abs(out - ref).max() / scale < 1e-6
-    outb = np.asarray(apply_taylor_pallas(jnp.asarray(vhs), jnp.asarray(phi),
-                                          lowp=True, interpret=True))
-    # bf16 multiplicands / f32 accumulation: ~8-bit mantissa per product.
-    assert np.abs(outb - ref).max() / scale < 5e-3
-    # 3M (Karatsuba) split: algebraically identical complex product.
-    from pauxy_tpu.propagation.generic import apply_exponential_taylor_3m
-
-    out3 = np.asarray(apply_exponential_taylor_3m(jnp.asarray(vhs),
-                                                  jnp.asarray(phi)))
-    assert np.abs(out3 - ref).max() / scale < 1e-6
+    vhs = 0.1 * (rng.normal(size=(w, m, m)) + 1j * rng.normal(size=(w, m, m)))
+    phi = rng.normal(size=(w, m, n)) + 1j * rng.normal(size=(w, m, n))
+    fn = apply_exponential_taylor_3m if impl == "xla_3m" else \
+        apply_exponential_taylor
+    out = np.asarray(fn(jnp.asarray(vhs), jnp.asarray(phi)))
+    ref = _taylor_numpy(vhs, phi)
+    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-12
 
 
 @pytest.mark.unit
-def test_exx_pallas_matches_einsum():
-    """Fused exchange kernel (interpret) == the dense einsum, including the
-    X-chunked accumulation path and non-divisible walker counts."""
+@pytest.mark.parametrize("max_elems", [1 << 27, 5 * 24 * 16, 5 * 24 * 7])
+def test_exx_chunked_matches_einsum(max_elems):
+    """The exchange energy without a supermatrix: one einsum when the
+    [w, X, n, n] intermediate fits, else the Cholesky-axis chunked scan
+    (chunks that do and do not divide X, odd walker counts)."""
     import jax.numpy as jnp
 
-    from pauxy_tpu.ops.exx_pallas import exx_pallas
+    from pauxy_jax.estimators.local_energy import _exx
 
     rng = np.random.default_rng(1)
     X, n, m, w = 37, 5, 24, 11
-    rc = rng.normal(size=(X, n, m)).astype(np.float32)
-    gh = (rng.normal(size=(w, n, m))
-          + 1j * rng.normal(size=(w, n, m))).astype(np.complex64)
+    rc = rng.normal(size=(X, n, m))
+    gh = rng.normal(size=(w, n, m)) + 1j * rng.normal(size=(w, n, m))
     t = np.einsum("xim,wjm->wxij", rc, gh)
     ref = np.einsum("wxij,wxji->w", t, t)
-    out = np.asarray(exx_pallas(jnp.asarray(rc), jnp.asarray(gh), wb=4,
-                                max_chunk_elems=n * m * 16, interpret=True))
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-5
+    out = np.asarray(_exx(jnp.asarray(rc), jnp.asarray(gh),
+                          max_elems=max_elems))
+    np.testing.assert_allclose(out, ref, rtol=1e-11)
 
 
 @pytest.mark.driver
-def test_generic_driver_taylor_pallas_trajectory(tmp_path):
-    """A Generic run with taylor_impl='pallas_interpret' is
-    trajectory-close to the XLA path (same RNG stream; f32 kernel vs f64
-    XLA on CPU tests, so agreement is to single precision)."""
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+def test_generic_driver_taylor_3m_trajectory(tmp_path):
+    """A Generic run with taylor_impl='xla_3m' is trajectory-equal to the
+    default complex-einsum path (same RNG stream)."""
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     def run(impl, fname):
         h1e, chol, enuc, _ = generate_hamiltonian(6, (2, 2), seed=21)
@@ -396,12 +392,8 @@ def test_generic_driver_taylor_pallas_trajectory(tmp_path):
         return af.run()
 
     r_x = run("xla", "tx.h5")
-    r_p = run("pallas_interpret", "tp.h5")
-    # Drop the trailing wall-clock Time column (never reproducible).
-    np.testing.assert_allclose(np.asarray(r_x).real[:, :-1],
-                               np.asarray(r_p).real[:, :-1],
-                               rtol=2e-4, atol=2e-4)
     r_3 = run("xla_3m", "t3.h5")
+    # Drop the trailing wall-clock Time column (never reproducible).
     np.testing.assert_allclose(np.asarray(r_x).real[:, :-1],
                                np.asarray(r_3).real[:, :-1],
                                rtol=1e-8, atol=1e-10)
@@ -413,8 +405,8 @@ def test_hartree_fock_excitation_promotion_energy():
     orbital i promoted to virtual a (reference hartree_fock.py:57-77). The
     trial variational energy must match the reference HartreeFock class on
     the identical Hamiltonian."""
-    from pauxy_tpu.qmc.calc import get_trial_wavefunction
-    from pauxy_tpu.utils.transfer import to_host
+    from pauxy_jax.qmc.calc import get_trial_wavefunction
+    from pauxy_jax.utils.transfer import to_host
 
     nmo, nelec = 6, (2, 2)
     h1e, chol, enuc, eri = generate_hamiltonian(nmo, nelec, seed=11)

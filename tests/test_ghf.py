@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.models import ghf as ghf_mod
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.models import ghf as ghf_mod
 
 REFERENCE = "/root/reference"
 HAVE_REF = os.path.isdir(os.path.join(REFERENCE, "pauxy"))
@@ -48,7 +48,7 @@ def embed_block(phia, phib):
 
 
 def dense_trial(ham_like, psi, coeffs, phia, phib):
-    from pauxy_tpu.utils.transfer import to_device
+    from pauxy_jax.utils.transfer import to_device
 
     return ghf_mod.GHFTrial(
         psi=to_device(psi.astype(np.complex128)),
@@ -133,7 +133,7 @@ def test_ghf_local_energy_vs_reference():
     trial = dense_trial(ham, psi, coeffs, phia, phib)
     gi, wts = ghf_mod.ghf_greens_function(
         trial, jnp.asarray(phia), jnp.asarray(phib))
-    from pauxy_tpu.estimators import local_energy as le
+    from pauxy_jax.estimators import local_energy as le
 
     etot, ke, pe = le.local_energy_hubbard_ghf(ham, gi, wts)
     etot, ke, pe = np.asarray(etot), np.asarray(ke), np.asarray(pe)
@@ -169,8 +169,8 @@ def test_ghf_sweep_overlap_consistency():
     """After a full Hirsch GHF sweep, the maintained log_ovlp must equal the
     from-scratch GHF overlap of the updated walkers."""
     import jax
-    from pauxy_tpu.propagation.hirsch import make_hirsch
-    from pauxy_tpu.walkers.state import init_walkers
+    from pauxy_jax.propagation.hirsch import make_hirsch
+    from pauxy_jax.walkers.state import init_walkers
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
     fe = free_electron_trial(ham)
@@ -207,7 +207,7 @@ def test_ghf_sweep_overlap_consistency():
 def test_ghf_driver_matches_uhf_single_det(tmp_path):
     """A single-det GHF trial embedding the UHF pair must give the SAME
     physics as the plain single-det walker path (identical RNG stream)."""
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     fe = free_electron_trial(ham)
@@ -236,9 +236,9 @@ def test_ghf_variational_energy_vs_rayleigh_quotient():
     """GAB-full GHF variational energy vs the Rayleigh quotient from the
     non-orthogonal (H, S) matrices, for spin-block determinants where both
     machineries apply (``pauxy/estimators/hubbard.py:145-176``)."""
-    from pauxy_tpu.estimators import local_energy as le
-    from pauxy_tpu.models.ghf import ghf_variational_energy
-    from pauxy_tpu.models.trial import trial_density_matrix
+    from pauxy_jax.estimators import local_energy as le
+    from pauxy_jax.models.ghf import ghf_variational_energy
+    from pauxy_jax.models.trial import trial_density_matrix
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
     m, na = ham.nbasis, 2

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.ops import greens
+from pauxy_jax.ops import greens
 
 
 def random_slater(rng, nw, m, n):

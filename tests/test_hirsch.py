@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.models.trial import trial_from_orbitals
-from pauxy_tpu.propagation.hirsch import make_hirsch
-from pauxy_tpu.qmc import AFQMC, QMCOpts
-from pauxy_tpu.walkers import init_walkers
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.models.trial import trial_from_orbitals
+from pauxy_jax.propagation.hirsch import make_hirsch
+from pauxy_jax.qmc import AFQMC, QMCOpts
+from pauxy_jax.walkers import init_walkers
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -49,7 +49,7 @@ def numpy_sweep(trial, auxf, aux_wfac, phia, phib, rs_site):
 
 @pytest.mark.unit
 @pytest.mark.parametrize("charge,kernel", [
-    (False, "scan"), (True, "scan"), (False, "pallas_interpret"),
+    (False, "scan"), (True, "scan"), (False, "triton_interpret"),
 ])
 def test_site_sweep_vs_numpy(charge, kernel):
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
@@ -58,7 +58,7 @@ def test_site_sweep_vs_numpy(charge, kernel):
                        sweep_kernel=kernel)
     nw = 4
     state = init_walkers(trial, nw)
-    # Randomize walker states a bit (still full rank). The pallas kernel's
+    # Randomize walker states a bit (still full rank). The kernel's
     # contract is the real subspace (driver-built discrete runs stay real),
     # so its perturbation is real; the scan path also covers complex states.
     rng = np.random.default_rng(0)
@@ -88,7 +88,7 @@ def test_site_sweep_vs_numpy(charge, kernel):
 @pytest.mark.unit
 def test_sweep_overlap_consistency():
     """log_ovlp tracked through the sweep equals the recomputed overlap."""
-    from pauxy_tpu.ops import greens
+    from pauxy_jax.ops import greens
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
@@ -143,7 +143,7 @@ def test_kinetic_kspace_matches_dense():
     """FFT kinetic application must equal the dense BT2 matmul on a clean
     PBC lattice (``pauxy/propagation/hubbard.py:800-833``)."""
     import jax.numpy as jnp
-    from pauxy_tpu.propagation.hirsch import make_hirsch
+    from pauxy_jax.propagation.hirsch import make_hirsch
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=4, ny=4)
     trial = free_electron_trial(ham)
@@ -161,7 +161,7 @@ def test_kinetic_kspace_matches_dense():
 
 @pytest.mark.unit
 def test_kinetic_kspace_rejects_twist():
-    from pauxy_tpu.propagation.hirsch import make_hirsch
+    from pauxy_jax.propagation.hirsch import make_hirsch
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3,
                        ktwist=[0.1, 0.2])
@@ -175,7 +175,7 @@ def test_two_body_direct_driver(tmp_path):
     """Whole-lattice dynamic-force-bias update: same physics as the
     single-site sweep statistically (both are exact discrete HS samplers of
     the same propagator; only the importance function differs)."""
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
@@ -209,8 +209,8 @@ def test_two_body_direct_driver(tmp_path):
 def test_single_site_update_false_alias(tmp_path):
     """The reference's 'single_site_update': false spelling selects the
     whole-lattice dynamic-force-bias update (propagation/hubbard.py:49)."""
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
     trial = free_electron_trial(ham)
@@ -234,8 +234,8 @@ def test_attractive_u_discrete(tmp_path):
     reference silently produces NaN fields here)."""
     import numpy as np
 
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=3, U=-4.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
@@ -253,7 +253,7 @@ def test_attractive_u_discrete(tmp_path):
     # Quantitative window vs FCI on a 4-site chain (charge decomposition is
     # the real-field HS for attractive U): short run, so allow
     # constrained-path + Trotter bias (~22 mHa measured at dt=0.01).
-    from pauxy_tpu.estimators import ci
+    from pauxy_jax.estimators import ci
 
     ham4 = make_hubbard(nup=2, ndown=2, U=-4.0, nx=4, xpbc=False)
     ev, _, _ = ci.simple_fci(ham4)
@@ -272,3 +272,74 @@ def test_attractive_u_discrete(tmp_path):
         AFQMC(ham, trial, qmc,
               propagator_options={"hubbard_stratonovich": "discrete"},
               filename=str(tmp_path / "attr2.h5"))
+
+
+def _real_walkers(trial, nw, seed):
+    state = init_walkers(trial, nw)
+    rng = np.random.default_rng(seed)
+    return state.replace(
+        phia=state.phia + 0.1 * rng.standard_normal(state.phia.shape),
+        phib=state.phib + 0.1 * rng.standard_normal(state.phib.shape))
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("nx,ny,nup,ndown,nw", [
+    (3, 3, 3, 3, 4),       # padded sites (9 -> 16) and orbitals (3 -> 4)
+    (4, 4, 7, 7, 40),      # the 4x4 flagship; two walker blocks, padded
+    (4, 4, 7, 5, 33),      # unequal spins
+])
+def test_triton_sweep_matches_scan(nx, ny, nup, ndown, nw):
+    """The site-sweep kernel (interpret mode) follows the scan sweep's
+    trajectory: same fields, weights, overlaps and walkers."""
+    ham = make_hubbard(nup=nup, ndown=ndown, U=4.0, nx=nx, ny=ny)
+    trial = free_electron_trial(ham)
+    scan = make_hirsch(ham, trial, dt=0.05, sweep_kernel="scan")
+    kern = make_hirsch(ham, trial, dt=0.05, sweep_kernel="triton_interpret")
+    state = _real_walkers(trial, nw, 1)
+    key = jax.random.key(5)
+    s1, f1 = scan._site_sweep(trial, state, key)
+    s2, f2 = kern._site_sweep(trial, state, key)
+    np.testing.assert_array_equal(np.asarray(f1), np.asarray(f2))
+    for a, b in ((s1.weight, s2.weight), (s1.log_ovlp, s2.log_ovlp),
+                 (s1.phia, s2.phia), (s1.phib, s2.phib)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("backend,popts,expect", [
+    ("cpu", {}, "scan"),
+    ("gpu", {}, "triton"),
+    ("gpu", {"charge_decomposition": True}, "scan"),
+    ("gpu", {"free_projection": True}, "scan"),
+    ("gpu", {"two_body_mode": "direct"}, "scan"),
+    ("gpu", {"ktwist": [0.01, 0.0]}, "scan"),
+])
+def test_sweep_kernel_choice(monkeypatch, backend, popts, expect):
+    """The kernel is chosen from the platform and the propagation's
+    realness; the CPU never gets it (and so never interpret mode)."""
+    from pauxy_jax.propagation import hirsch
+
+    popts = dict(popts)
+    ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3,
+                       ktwist=popts.pop("ktwist", None))
+    trial = free_electron_trial(ham)
+    monkeypatch.setattr(hirsch.jax, "default_backend", lambda: backend)
+    assert make_hirsch(ham, trial, 0.05, **popts).sweep_kernel == expect
+
+
+@pytest.mark.driver
+def test_triton_sweep_driver_trajectory(tmp_path):
+    """A discrete driver run with the kernel (interpret mode) reproduces
+    the scan run's rows."""
+    from pauxy_jax.qmc import AFQMC, QMCOpts
+
+    ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
+    trial = free_electron_trial(ham)
+    qmc = QMCOpts(nwalkers=8, dt=0.05, nsteps=4, nblocks=2, nstblz=2,
+                  npop_control=2, rng_seed=3)
+    rows = [AFQMC(ham, trial, qmc, filename=False, propagator_options={
+        "hubbard_stratonovich": "discrete", "sweep_kernel": k}).run()
+        for k in ("scan", "triton_interpret")]
+    np.testing.assert_allclose(rows[0][:, 1:10].real, rows[1][:, 1:10].real,
+                               rtol=1e-9, atol=1e-10)

@@ -10,12 +10,12 @@ import os
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.qmc import AFQMC, QMCOpts
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.qmc import AFQMC, QMCOpts
 
 
 def run(tmp_path, tag, fast: bool, **kw):
-    os.environ["PAUXY_TPU_FAST"] = "1" if fast else "0"
+    os.environ["PAUXY_FAST"] = "1" if fast else "0"
     try:
         ham = make_hubbard(nup=kw.get("nup", 7), ndown=kw.get("ndown", 7),
                            U=4.0, nx=4, ny=4, ktwist=kw.get("ktwist"))
@@ -37,7 +37,7 @@ def run(tmp_path, tag, fast: bool, **kw):
         rows = af.run()
         return rows
     finally:
-        os.environ.pop("PAUXY_TPU_FAST", None)
+        os.environ.pop("PAUXY_FAST", None)
 
 
 @pytest.mark.parametrize("pop_method", ["comb", "pair_branch"])
@@ -85,76 +85,31 @@ def test_fast_block_ineligible_paths_fall_back(tmp_path):
     assert np.isfinite(rows.real).all()
 
 
-def test_fast_block_pallas_greens_matches_xla(tmp_path):
-    """The VMEM greens kernel (interpret mode) inside the fast block is
-    trajectory-equal to the unrolled-XLA lanes path."""
-    import jax
-    import jax.numpy as jnp
-
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import hubbard_fast as hf
-    from pauxy_tpu.utils.transfer import device_zeros
-    from pauxy_tpu.walkers import init_walkers
-
-    ham = make_hubbard(nup=7, ndown=7, U=4.0, nx=4, ny=4)
-    trial = free_electron_trial(ham)
-    from pauxy_tpu.propagation import continuous
-    from pauxy_tpu.propagation.hubbard import make_hubbard_continuous
-
-    inner = make_hubbard_continuous(ham, trial, 0.01)
-    prop = continuous.Continuous(inner=inner, dt=0.01)
-    state = init_walkers(trial, 24, total_weight=24.0)
-    eshift = device_zeros((), state.log_ovlp.dtype)
-    kw = dict(nsteps=10, nstblz=5, npop_control=2, pop_method="comb",
-              target_weight=24.0, energy_eval_freq=1)
-    s1, a1 = hf.run_block_lanes(ham, trial, prop, state, jax.random.key(3),
-                                eshift, jnp.asarray(0, jnp.int32),
-                                greens_impl="xla", **kw)
-    s2, a2 = hf.run_block_lanes(ham, trial, prop, state, jax.random.key(3),
-                                eshift, jnp.asarray(0, jnp.int32),
-                                greens_impl="pallas_interpret", **kw)
-    np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
-                               rtol=1e-8, atol=1e-10)
-    np.testing.assert_allclose(np.asarray(s1.weight), np.asarray(s2.weight),
-                               rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(jnp.abs(s1.phia)),
-                               np.asarray(jnp.abs(s2.phia)), atol=1e-9)
-
-
 @pytest.mark.unit
-def test_greens_pallas_fori_loop_large_lattice():
-    """Lattices beyond UNROLL_MAX_M sites run the fori_loop kernel body
-    (the unrolled program's code size is O(m*n) and wedged Mosaic compiles
-    at 8x8+); math must match numpy on both sides of the threshold, and
-    the VMEM guard must route oversized problems to XLA."""
+@pytest.mark.parametrize("m,n", [(16, 7), (36, 18), (64, 24)])
+def test_greens_lanes_matches_numpy(m, n):
+    """The unrolled walker-last Green's function of the fast block matches
+    numpy's logdet and S^-1 phi^T from the 4x4 lattice up to 8x8."""
     import jax.numpy as jnp
 
-    from pauxy_tpu.ops.greens_pallas import (UNROLL_MAX_M,
-                                             greens_lanes_pallas, vmem_ok)
+    from pauxy_jax.qmc import hubbard_fast as hf
 
     rng = np.random.default_rng(5)
-    for m, n in [(16, 7), (36, 18), (64, 24)]:
-        w = 8
-        psi = (rng.normal(size=(m, n))
-               + 1j * rng.normal(size=(m, n))).astype(np.complex64)
-        phi = 0.3 * (rng.normal(size=(m, n, w)) + 1j * rng.normal(
-            size=(m, n, w))).astype(np.complex64) + psi[:, :, None]
-        ld, ght = greens_lanes_pallas(jnp.asarray(psi), jnp.asarray(phi),
-                                      interpret=True)
-        s = np.einsum("mnw,mk->wnk", phi, psi.conj())
-        _, ldref = np.linalg.slogdet(s)
-        gh_ref = np.einsum("wni,miw->wnm", np.linalg.inv(s), phi)
-        gh = np.transpose(np.asarray(ght), (2, 1, 0))
-        assert np.abs(np.asarray(ld).real - ldref).max() < 1e-3
-        assert np.abs(gh - gh_ref).max() < 1e-3
-        assert vmem_ok(m, n)
-    assert UNROLL_MAX_M < 36  # the loop above covered both kernel bodies
-    # Oversized: chip-probed (64, 28) aborts the Mosaic compile; 12x12
-    # half-filled exceeds VMEM; 10x10 n=50 exceeds the GJ n-budget.
-    # fast_greens_impl falls back to 'xla' for these.
-    assert not vmem_ok(64, 28)
-    assert not vmem_ok(144, 72)
-    assert not vmem_ok(100, 50)
+    w = 8
+    psi = rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))
+    phi = 0.3 * (rng.normal(size=(m, n, w))
+                 + 1j * rng.normal(size=(m, n, w))) + psi[:, :, None]
+    ld, ght, diag = hf._greens_lanes(jnp.asarray(psi), jnp.asarray(phi))
+    s = np.einsum("mnw,mk->wnk", phi, psi.conj())
+    sign, ldref = np.linalg.slogdet(s)
+    gh_ref = np.einsum("wni,miw->wnm", np.linalg.inv(s), phi)
+    gh = np.transpose(np.asarray(ght), (2, 1, 0))
+    np.testing.assert_allclose(np.exp(np.asarray(ld)), sign * np.exp(ldref),
+                               rtol=1e-9)
+    np.testing.assert_allclose(gh, gh_ref, atol=1e-9)
+    np.testing.assert_allclose(
+        np.asarray(diag).T, np.einsum("mi,wim->wm", psi.conj(), gh_ref),
+        atol=1e-9)
 
 
 @pytest.mark.unit
@@ -167,8 +122,8 @@ def test_eligible_classifies_every_propagator_option():
     physics than qmc/afqmc.run_block."""
     import dataclasses
 
-    from pauxy_tpu.propagation.continuous import Continuous
-    from pauxy_tpu.propagation.hubbard import HubbardContinuous
+    from pauxy_jax.propagation.continuous import Continuous
+    from pauxy_jax.propagation.hubbard import HubbardContinuous
 
     continuous_classified = {
         "inner",            # isinstance(HubbardContinuous) gate

@@ -10,8 +10,8 @@ import sys
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard
-from pauxy_tpu.models.hubbard import band_energies, kinetic_matrix
+from pauxy_jax.models import make_hubbard
+from pauxy_jax.models.hubbard import band_energies, kinetic_matrix
 
 REFERENCE = "/root/reference"
 HAVE_REF = os.path.isdir(os.path.join(REFERENCE, "pauxy"))
@@ -66,7 +66,7 @@ def test_kinetic_hermitian_and_bandsum():
 
 @pytest.mark.unit
 def test_pinning_fields():
-    from pauxy_tpu.models.hubbard import pinned_kinetic
+    from pauxy_jax.models.hubbard import pinned_kinetic
 
     t2 = pinned_kinetic(1.0, 4, 4)
     assert t2.shape == (2, 16, 16)
@@ -85,7 +85,7 @@ def test_pinning_fields():
 
 @pytest.mark.unit
 def test_uhf_checkerboard_guess():
-    from pauxy_tpu.models.trial import uhf_trial
+    from pauxy_jax.models.trial import uhf_trial
 
     ham = make_hubbard(nup=8, ndown=8, U=4.0, nx=4, ny=4)
     trial = uhf_trial(ham, initial="checkerboard")

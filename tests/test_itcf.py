@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import scipy.linalg
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.qmc import AFQMC, QMCOpts
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.qmc import AFQMC, QMCOpts
 
 
 def analytic_free_itcf(ham, trial, dt, ntau):
@@ -211,8 +211,8 @@ def test_itcf_generic_free_fermions(tmp_path):
     analytic oracle applies — exercises dense_propagators' continuous
     branch on an ab-initio Hamiltonian (the reference's ITCF is
     system-general the same way)."""
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.trial import trial_from_orbitals
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.trial import trial_from_orbitals
 
     rng = np.random.default_rng(5)
     m = 6

@@ -7,7 +7,7 @@ and the FCIDUMP assembly loop (``:500-530``) as the ERI oracle.
 import numpy as np
 import pytest
 
-from pauxy_tpu.utils import hamiltonian_converter as hc
+from pauxy_jax.utils import hamiltonian_converter as hc
 
 
 def synthetic_kpoint(nkp=3, nmo=2, nchol=4, seed=5):

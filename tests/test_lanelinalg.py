@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pauxy_tpu.ops import clinalg, lanelinalg as ll
+from pauxy_jax.ops import clinalg, lanelinalg as ll
 
 
 def rand_c(shape, seed=0, scale=1.0):

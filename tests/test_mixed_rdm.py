@@ -12,9 +12,9 @@ import sys
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, make_ueg, free_electron_trial
-from pauxy_tpu.models import rhf_identity_trial
-from pauxy_tpu.qmc import AFQMC, QMCOpts
+from pauxy_jax.models import make_hubbard, make_ueg, free_electron_trial
+from pauxy_jax.models import rhf_identity_trial
+from pauxy_jax.qmc import AFQMC, QMCOpts
 
 REFERENCE = "/root/reference"
 HAVE_REF = os.path.isdir(os.path.join(REFERENCE, "pauxy"))
@@ -82,7 +82,7 @@ def test_mixed_two_rdm_structure_factor_ueg(tmp_path):
 @pytest.mark.unit
 def test_two_rdm_rejected_off_ueg():
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
-    from pauxy_tpu.estimators import mixed as mx
+    from pauxy_jax.estimators import mixed as mx
 
     with pytest.raises(NotImplementedError):
         mx.dms_size(ham, False, "structure_factor")

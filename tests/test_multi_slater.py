@@ -4,15 +4,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pauxy_tpu.models import make_hubbard, make_generic
-from pauxy_tpu.models.multi_slater import (
+from pauxy_jax.models import make_hubbard, make_generic
+from pauxy_jax.models.multi_slater import (
     MultiSlaterTrial,
     greens_function_multi_det,
     log_overlap_multi_det,
     multi_slater_trial,
 )
-from pauxy_tpu.qmc import AFQMC, QMCOpts
-from pauxy_tpu.utils.testing import generate_hamiltonian, random_wavefunction
+from pauxy_jax.qmc import AFQMC, QMCOpts
+from pauxy_jax.utils.testing import generate_hamiltonian, random_wavefunction
 
 
 def build_msd(ham, ndets=3, seed=2):
@@ -64,8 +64,8 @@ def test_msd_overlap_and_greens_vs_numpy():
 @pytest.mark.unit
 def test_msd_single_det_limit():
     """ndets=1 must reproduce the single-determinant machinery exactly."""
-    from pauxy_tpu.models.trial import trial_from_orbitals
-    from pauxy_tpu.ops import greens
+    from pauxy_jax.models.trial import trial_from_orbitals
+    from pauxy_jax.ops import greens
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     rng = np.random.default_rng(3)
@@ -88,7 +88,7 @@ def test_msd_afqmc_hubbard(tmp_path):
     """Phaseless run with a 2-determinant trial on 3x3 Hubbard."""
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     # Two UHF-ish determinants: free-electron + slightly rotated copy.
-    from pauxy_tpu.models.trial import free_electron_trial
+    from pauxy_jax.models.trial import free_electron_trial
 
     fe = free_electron_trial(ham)
     base = np.concatenate(
@@ -132,9 +132,9 @@ def test_singular_det_overlap_is_sanitised():
     G / weights (PHMSD identity-column dets hit this at init)."""
     import jax
 
-    from pauxy_tpu.models.multi_slater import (greens_function_multi_det,
+    from pauxy_jax.models.multi_slater import (greens_function_multi_det,
                                                phmsd_trial)
-    from pauxy_tpu.walkers import init_walkers
+    from pauxy_jax.walkers import init_walkers
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=4, ny=1)
     trial = phmsd_trial(ham, coeffs=[0.95, 0.05],
@@ -165,9 +165,9 @@ def test_single_det_msd_matches_single_det_driver(tmp_path, monkeypatch):
     bit-for-bit (same RNG stream, same math)."""
     import os
 
-    from pauxy_tpu.models import free_electron_trial
-    from pauxy_tpu.models.multi_slater import multi_slater_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models import free_electron_trial
+    from pauxy_jax.models.multi_slater import multi_slater_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     monkeypatch.chdir(tmp_path)
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3,
@@ -192,9 +192,9 @@ def test_msd_half_rotated_energy_vs_dense():
     (local_energy_generic_opt_multi) equals the dense per-det cholesky
     energy, det-averaged — and the MSD force bias from per-det rchol equals
     the full-G contraction."""
-    from pauxy_tpu.estimators import local_energy as le
-    from pauxy_tpu.propagation.continuous import trial_greens
-    from pauxy_tpu.propagation.generic import make_generic_continuous
+    from pauxy_jax.estimators import local_energy as le
+    from pauxy_jax.propagation.continuous import trial_greens
+    from pauxy_jax.propagation.generic import make_generic_continuous
 
     rng = np.random.default_rng(7)
     nmo, na, nb, nchol, ndets, nw = 9, 3, 3, 18, 4, 5
@@ -254,9 +254,9 @@ def test_recompute_ci_coeffs_full_space_is_fci():
     reproduce the FCI ground state (``multi_slater.py:193-232``)."""
     import itertools
 
-    from pauxy_tpu.estimators import ci
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.multi_slater import recompute_ci_coeffs
+    from pauxy_jax.estimators import ci
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.multi_slater import recompute_ci_coeffs
 
     rng = np.random.default_rng(1)
     nmo, na = 4, 2
@@ -281,10 +281,10 @@ def test_recompute_ci_coeffs_full_space_is_fci():
 def test_recompute_ci_coeffs_nonorthogonal():
     """Non-orthogonal two-det expansion: rediagonalized energy is below
     both single-det variational energies (generalized eigenproblem)."""
-    from pauxy_tpu.estimators import local_energy as le
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.multi_slater import recompute_ci_coeffs
-    from pauxy_tpu.models.trial import trial_density_matrix
+    from pauxy_jax.estimators import local_energy as le
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.multi_slater import recompute_ci_coeffs
+    from pauxy_jax.models.trial import trial_density_matrix
 
     rng = np.random.default_rng(5)
     nmo, na = 4, 2

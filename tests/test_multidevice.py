@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.parallel import mesh as pmesh
-from pauxy_tpu.qmc import AFQMC, QMCOpts
-from pauxy_tpu.walkers import init_walkers
-from pauxy_tpu.walkers import pop_control as pc
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.parallel import mesh as pmesh
+from pauxy_jax.qmc import AFQMC, QMCOpts
+from pauxy_jax.walkers import init_walkers
+from pauxy_jax.walkers import pop_control as pc
 
 pytestmark = pytest.mark.integration
 
@@ -73,9 +73,9 @@ def test_generic_chol_sharded_matches_single_device(tmp_path):
     """Generic run with the Cholesky axis sharded over a [walker=2, chol=4]
     mesh gives identical physics to the unsharded run (SURVEY 2.11:
     chol-axis sharding with psum-completed contractions)."""
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.trial import rhf_identity_trial
-    from pauxy_tpu.utils.testing import generate_hamiltonian
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.trial import rhf_identity_trial
+    from pauxy_jax.utils.testing import generate_hamiltonian
 
     h1e, chol, enuc, _ = generate_hamiltonian(8, (3, 3), seed=5, nchol=16)
     ham = make_generic((3, 3), h1e, chol, enuc)
@@ -104,9 +104,9 @@ def test_generic_chol_sharded_matches_single_device(tmp_path):
 @pytest.mark.skipif(NDEV < 8, reason="needs 8 devices")
 def test_msd_generic_chol_sharded(tmp_path):
     """MSD trial with per-det rchol sharded over the chol axis."""
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.multi_slater import multi_slater_trial
-    from pauxy_tpu.utils.testing import generate_hamiltonian
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.multi_slater import multi_slater_trial
+    from pauxy_jax.utils.testing import generate_hamiltonian
 
     h1e, chol, enuc, _ = generate_hamiltonian(8, (3, 3), seed=5, nchol=16)
     ham = make_generic((3, 3), h1e, chol, enuc)
@@ -170,7 +170,7 @@ def test_discrete_hirsch_sharded_matches_single_device(tmp_path):
     trial = free_electron_trial(ham)
     qmc = QMCOpts(nwalkers=16, dt=0.05, nsteps=6, nblocks=3, nstblz=3,
                   npop_control=2, rng_seed=5)
-    popts = {"hubbard_stratonovich": "discrete", "sweep_kernel": "scan"}
+    popts = {"hubbard_stratonovich": "discrete"}
 
     af1 = AFQMC(ham, trial, qmc, propagator_options=popts,
                 estimator_options={"mixed": {"energy_eval_freq": 1}},
@@ -188,44 +188,12 @@ def test_discrete_hirsch_sharded_matches_single_device(tmp_path):
 
 
 @pytest.mark.skipif(NDEV < 2, reason="needs multiple devices")
-def test_discrete_pallas_sweep_sharded(tmp_path):
-    """The VMEM pallas sweep dispatched per walker shard via jax.shard_map
-    must be trajectory-equal to the scan sweep on the same sharded state
-    (VERDICT r2 item 7)."""
-    ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
-    trial = free_electron_trial(ham)
-    qmc = QMCOpts(nwalkers=16, dt=0.05, nsteps=6, nblocks=3, nstblz=3,
-                  npop_control=2, rng_seed=5)
-    m = pmesh.walker_mesh()
-
-    af1 = AFQMC(ham, trial, qmc,
-                propagator_options={"hubbard_stratonovich": "discrete",
-                                    "sweep_kernel": "scan"},
-                estimator_options={"mixed": {"energy_eval_freq": 1}},
-                filename=str(tmp_path / "s1.h5"))
-    af1.state = pmesh.shard_walkers(af1.state, m)
-    rows1 = af1.run()
-
-    af2 = AFQMC(ham, trial, qmc,
-                propagator_options={"hubbard_stratonovich": "discrete",
-                                    "sweep_kernel": "pallas_interpret",
-                                    "mesh": m},
-                estimator_options={"mixed": {"energy_eval_freq": 1}},
-                filename=str(tmp_path / "s2.h5"))
-    af2.state = pmesh.shard_walkers(af2.state, m)
-    rows2 = af2.run()
-
-    np.testing.assert_allclose(rows1[:, 1:10].real, rows2[:, 1:10].real,
-                               rtol=1e-7, atol=1e-9)
-
-
-@pytest.mark.skipif(NDEV < 2, reason="needs multiple devices")
 def test_thermal_sharded_matches_single_device(tmp_path):
     """Thermal AFQMC (per-slice pop control over a sharded stack) gives
     identical physics sharded vs unsharded (reference per-slice pop control,
     pauxy/qmc/thermal_afqmc.py:224-226)."""
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     beta, dt = 0.5, 0.05
@@ -257,8 +225,8 @@ def test_thermal_discrete_sharded_matches_single_device(tmp_path):
     """ThermalDiscrete (finite-T Hirsch, G <- B G B^-1 rank-1 updates)
     with the walker axis sharded matches single-device (reference:
     pauxy/thermal_propagation/hubbard.py:8-180)."""
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
     beta, dt = 0.5, 0.05
@@ -293,7 +261,7 @@ def test_hubbard_holstein_sharded_matches_single_device(tmp_path):
     sharded: the phonon coordinate arrays, the boson importance-sampling
     acceptance draws, and the coupled electron update must be SPMD-clean
     (reference: pauxy/propagation/hubbard_holstein.py:17-440)."""
-    from pauxy_tpu.models.hubbard_holstein import (coherent_state_trial,
+    from pauxy_jax.models.hubbard_holstein import (coherent_state_trial,
                                                    make_hubbard_holstein)
 
     ham = make_hubbard_holstein(nup=2, ndown=2, U=4.0, nx=4, g=0.5, w0=1.0,
@@ -322,7 +290,7 @@ def test_thermal_lowrank_sharded_matches_single_device(tmp_path):
     """Low-rank thermal UEG (masked QDT stack) sharded on the walker axis
     matches the unsharded run (reference low-rank path,
     pauxy/thermal_propagation/planewave.py:519 + walkers/stack.py:326)."""
-    from pauxy_tpu.qmc.calc import setup_calculation
+    from pauxy_jax.qmc.calc import setup_calculation
 
     def build(fname):
         return setup_calculation({
@@ -432,12 +400,10 @@ def test_itcf_sharded_matches_single_device(tmp_path):
 
 
 @pytest.mark.skipif(NDEV < 8, reason="needs 8 devices")
-def test_lanes_kernels_sharded(monkeypatch):
-    """The VMEM lanes kernels (batched GJ inverse/logdet + chol-inverse)
-    dispatch per-shard via jax.shard_map on a walker mesh and agree with
-    the XLA paths (PAUXY_TPU_BATCHLA=shard_interpret opts the virtual CPU
-    mesh in; real multi-chip uses mode='shard' with the compiled kernel)."""
-    from pauxy_tpu.ops import clinalg
+def test_clinalg_sharded():
+    """Batched complex slogdet / solve / CholeskyQR2 on a walker-sharded
+    batch agree with numpy (XLA partitions the batched factorizations)."""
+    from pauxy_jax.ops import clinalg
 
     rng = np.random.default_rng(9)
     w, n, m = 16, 5, 12
@@ -446,60 +412,45 @@ def test_lanes_kernels_sharded(monkeypatch):
     phi = (rng.normal(size=(w, m, n))
            + 1j * rng.normal(size=(w, m, n))).astype(np.complex64)
     mesh = pmesh.walker_mesh()
-    pmesh.set_active_mesh(mesh)
-    monkeypatch.setenv("PAUXY_TPU_BATCHLA", "shard_interpret")
-    try:
-        assert clinalg._lanes_mode(jnp.asarray(s)) == "shard_interpret"
-        sd = pmesh.shard_walkers(jnp.asarray(s), mesh)
-        ld = np.asarray(clinalg.slogdet(sd))
-        np.testing.assert_allclose(np.exp(ld), np.linalg.det(s), rtol=2e-3)
-        y = jnp.asarray(phi).swapaxes(-1, -2)
-        x = np.asarray(clinalg.solve(sd, y))
-        np.testing.assert_allclose(s @ x, np.asarray(y), atol=2e-3)
-        q, logr = clinalg.cholesky_qr2(pmesh.shard_walkers(
-            jnp.asarray(phi), mesh))
-        q = np.asarray(q)
-        for i in range(w):
-            np.testing.assert_allclose(q[i].conj().T @ q[i], np.eye(n),
-                                       atol=1e-3)
-    finally:
-        pmesh.set_active_mesh(None)
+    sd = pmesh.shard_walkers(jnp.asarray(s), mesh)
+    ld = np.asarray(clinalg.slogdet(sd))
+    np.testing.assert_allclose(np.exp(ld), np.linalg.det(s), rtol=2e-3)
+    y = jnp.asarray(phi).swapaxes(-1, -2)
+    x = np.asarray(clinalg.solve(sd, y))
+    np.testing.assert_allclose(s @ x, np.asarray(y), atol=2e-3)
+    q, logr = clinalg.cholesky_qr2(pmesh.shard_walkers(
+        jnp.asarray(phi), mesh))
+    q = np.asarray(q)
+    for i in range(w):
+        np.testing.assert_allclose(q[i].conj().T @ q[i], np.eye(n),
+                                   atol=1e-3)
 
 
 @pytest.mark.skipif(NDEV < 8, reason="needs 8 devices")
-def test_fast_block_shard_greens_matches_xla():
-    """The fast Hubbard block with greens_impl='shard_interpret' (per-shard
-    VMEM greens kernel over the walker mesh) is trajectory-equal to the
-    unrolled-XLA lanes path on the same sharded state."""
-    from pauxy_tpu.propagation import continuous
-    from pauxy_tpu.propagation.hubbard import make_hubbard_continuous
-    from pauxy_tpu.qmc import hubbard_fast as hf
-    from pauxy_tpu.utils.transfer import device_zeros
+def test_fast_block_sharded_matches_unsharded():
+    """The fast Hubbard block on a walker-sharded state is trajectory-equal
+    to the same block on the unsharded state."""
+    from pauxy_jax.propagation import continuous
+    from pauxy_jax.propagation.hubbard import make_hubbard_continuous
+    from pauxy_jax.qmc import hubbard_fast as hf
+    from pauxy_jax.utils.transfer import device_zeros
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
     inner = make_hubbard_continuous(ham, trial, 0.01)
     prop = continuous.Continuous(inner=inner, dt=0.01)
     state = init_walkers(trial, 16, total_weight=16.0)
-    mesh = pmesh.walker_mesh()
-    state = pmesh.shard_walkers(state, mesh)
-    try:
-        eshift = device_zeros((), state.log_ovlp.dtype)
-        kw = dict(nsteps=6, nstblz=3, npop_control=2, pop_method="comb",
-                  target_weight=16.0, energy_eval_freq=1)
-        outs = {}
-        for impl in ("xla", "shard_interpret"):
-            s, a = hf.run_block_lanes(
-                ham, trial, prop, state, jax.random.key(3), eshift,
-                jnp.asarray(0, jnp.int32), greens_impl=impl, **kw)
-            outs[impl] = (np.asarray(a), np.asarray(s.weight))
-        np.testing.assert_allclose(outs["xla"][0],
-                                   outs["shard_interpret"][0],
-                                   rtol=1e-8, atol=1e-10)
-        np.testing.assert_allclose(outs["xla"][1],
-                                   outs["shard_interpret"][1], rtol=1e-9)
-    finally:
-        pmesh.set_active_mesh(None)
+    eshift = device_zeros((), state.log_ovlp.dtype)
+    kw = dict(nsteps=6, nstblz=3, npop_control=2, pop_method="comb",
+              target_weight=16.0, energy_eval_freq=1)
+    outs = []
+    for st in (state, pmesh.shard_walkers(state, pmesh.walker_mesh())):
+        s, a = hf.run_block_lanes(
+            ham, trial, prop, st, jax.random.key(3), eshift,
+            jnp.asarray(0, jnp.int32), **kw)
+        outs.append((np.asarray(a), np.asarray(s.weight)))
+    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-9)
 
 
 @pytest.mark.skipif(NDEV < 2, reason="needs multiple devices")
@@ -533,7 +484,7 @@ def test_ghf_sharded_matches_single_device(tmp_path):
     """GHF (2M x ne) trial with the discrete site sweep under a sharded
     walker axis — the per-site GHF overlap-ratio path is the last trial
     family exercised by the SPMD matrix."""
-    from pauxy_tpu.models import ghf as ghf_mod
+    from pauxy_jax.models import ghf as ghf_mod
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     fe = free_electron_trial(ham)
@@ -541,7 +492,7 @@ def test_ghf_sharded_matches_single_device(tmp_path):
                                      np.asarray(fe.psib))
     qmc = QMCOpts(nwalkers=16, dt=0.05, nsteps=5, nblocks=3, nstblz=5,
                   npop_control=5, rng_seed=8)
-    popts = {"hubbard_stratonovich": "discrete", "sweep_kernel": "scan"}
+    popts = {"hubbard_stratonovich": "discrete"}
 
     def run(fn, shard):
         af = AFQMC(ham, ghf, qmc, propagator_options=popts,
@@ -562,8 +513,8 @@ def test_multi_coherent_sharded_matches_single_device(tmp_path):
     """Multi-coherent (translation-symmetrized) HH trial under a sharded
     walker axis: per-component phonon overlaps and the mixture-drift boson
     move must be SPMD-clean (reference walkers/multi_coherent.py)."""
-    from pauxy_tpu.models.hubbard_holstein import make_hubbard_holstein
-    from pauxy_tpu.models.multi_coherent import multi_coherent_trial
+    from pauxy_jax.models.hubbard_holstein import make_hubbard_holstein
+    from pauxy_jax.models.multi_coherent import multi_coherent_trial
 
     ham = make_hubbard_holstein(nup=1, ndown=1, U=4.0, nx=3, g=0.4, w0=1.0,
                                 xpbc=True)

@@ -1,6 +1,6 @@
 """Native C++ FCIDUMP loader vs the pure-Python behavioural oracle.
 
-The native parser (pauxy_tpu/native/fcidump.cpp, ctypes) must reproduce
+The native parser (pauxy_jax/native/fcidump.cpp, ctypes) must reproduce
 utils/qmcpack.read_fcidump exactly on both real and complex files
 (reference format: pauxy/utils/hamiltonian_converter.py:8-100, 295-360).
 """
@@ -8,8 +8,8 @@ utils/qmcpack.read_fcidump exactly on both real and complex files
 import numpy as np
 import pytest
 
-from pauxy_tpu import native
-from pauxy_tpu.utils import qmcpack
+from pauxy_jax import native
+from pauxy_jax.utils import qmcpack
 
 
 def _write_fcidump(path, norb, nelec, ms2, entries, cplx):
@@ -144,14 +144,14 @@ def test_native_parse_locale_independent(tmp_path):
 
 @pytest.mark.unit
 def test_no_native_env_disables(tmp_path, monkeypatch):
-    """PAUXY_TPU_NO_NATIVE short-circuits the loader (fresh module state)."""
+    """PAUXY_NO_NATIVE short-circuits the loader (fresh module state)."""
     import importlib
 
-    monkeypatch.setenv("PAUXY_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("PAUXY_NO_NATIVE", "1")
     mod = importlib.reload(native)
     try:
         assert not mod.available()
         assert "disabled" in (mod.load_error() or "")
     finally:
-        monkeypatch.delenv("PAUXY_TPU_NO_NATIVE")
+        monkeypatch.delenv("PAUXY_NO_NATIVE")
         importlib.reload(native)

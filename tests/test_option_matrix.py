@@ -16,7 +16,7 @@ import os
 import numpy as np
 import pytest
 
-from pauxy_tpu.qmc.calc import get_driver
+from pauxy_jax.qmc.calc import get_driver
 
 
 def _run(options, tmp_path, fname="est.h5"):
@@ -35,7 +35,7 @@ def _run(options, tmp_path, fname="est.h5"):
     assert np.isfinite(rows.real).all() and np.isfinite(rows.imag).all(), rows
     # Weight column (HEADER[2]) alive through the run.
     assert np.abs(rows[:, 2]).min() > 1e-8, rows[:, 2]
-    from pauxy_tpu.analysis.extraction import extract_mixed_estimates
+    from pauxy_jax.analysis.extraction import extract_mixed_estimates
 
     df = extract_mixed_estimates(str(tmp_path / fname))
     assert len(df) == len(rows)
@@ -115,8 +115,8 @@ def test_local_energy_update_with_one_rdm(tmp_path):
 
 
 def _write_random_generic(tmp_path, nelec=(2, 2), nmo=6, seed=11):
-    from pauxy_tpu.utils.qmcpack import write_hamiltonian
-    from pauxy_tpu.utils.testing import generate_hamiltonian
+    from pauxy_jax.utils.qmcpack import write_hamiltonian
+    from pauxy_jax.utils.testing import generate_hamiltonian
 
     h1e, chol, enuc, _ = generate_hamiltonian(nmo, nelec, seed=seed)
     ham_file = str(tmp_path / "ham.h5")
@@ -301,8 +301,8 @@ def test_multi_coherent_one_rdm(tmp_path):
 def test_generic_stochastic_ri_prop_and_energy(tmp_path):
     """Stochastic-RI in BOTH the kinetic propagator (operations.py:54-90)
     and the local energy (generic.py:293-397) simultaneously."""
-    from pauxy_tpu.utils.qmcpack import write_hamiltonian
-    from pauxy_tpu.utils.testing import generate_hamiltonian
+    from pauxy_jax.utils.qmcpack import write_hamiltonian
+    from pauxy_jax.utils.testing import generate_hamiltonian
 
     nmo, nelec = 6, (2, 2)
     h1e, chol, enuc, _ = generate_hamiltonian(nmo, nelec, seed=13)

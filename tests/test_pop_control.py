@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.walkers import init_walkers
-from pauxy_tpu.walkers import pop_control as pc
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.walkers import init_walkers
+from pauxy_jax.walkers import pop_control as pc
 
 
 def make_state(weights):
@@ -103,9 +103,9 @@ def test_pop_control_dead_population_stays_dead():
     import jax
     import jax.numpy as jnp
 
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.walkers import init_walkers
-    from pauxy_tpu.walkers import pop_control as pc
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.walkers import init_walkers
+    from pauxy_jax.walkers import pop_control as pc
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
     state = init_walkers(free_electron_trial(ham), 8)
@@ -123,8 +123,8 @@ def test_driver_aborts_on_dead_population(tmp_path):
     sys.exits, handler.py:236-241) instead of streaming NaN/zero rows."""
     import jax.numpy as jnp
 
-    from pauxy_tpu.models import make_hubbard, free_electron_trial
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models import make_hubbard, free_electron_trial
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = free_electron_trial(ham)
@@ -134,8 +134,8 @@ def test_driver_aborts_on_dead_population(tmp_path):
     with pytest.raises(RuntimeError, match="population died"):
         af.run()
 
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
 
     ttrial = make_one_body_trial(ham, 0.25, 0.05)
     tqmc = QMCOpts(nwalkers=4, dt=0.05, nsteps=1, nblocks=1, beta=0.25,

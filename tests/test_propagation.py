@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import scipy.linalg
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.propagation import continuous
-from pauxy_tpu.propagation.hubbard import make_hubbard_continuous
-from pauxy_tpu.walkers import init_walkers
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.propagation import continuous
+from pauxy_jax.propagation.hubbard import make_hubbard_continuous
+from pauxy_jax.walkers import init_walkers
 
 
 def setup_problem(nw=3, dt=0.05, charge=True):
@@ -151,8 +151,8 @@ def test_local_energy_weight_update_runs():
 
 @pytest.mark.unit
 def test_phmsd_trial_runs():
-    from pauxy_tpu.models.multi_slater import phmsd_trial
-    from pauxy_tpu.models import make_hubbard
+    from pauxy_jax.models.multi_slater import phmsd_trial
+    from pauxy_jax.models import make_hubbard
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=4, ny=1)
     trial = phmsd_trial(
@@ -235,10 +235,10 @@ def test_spin_project_init():
     one-body eigenvectors. The trial orbitals themselves are unchanged."""
     import numpy as np
 
-    from pauxy_tpu.models import make_hubbard
-    from pauxy_tpu.models.trial import (free_electron_trial,
+    from pauxy_jax.models import make_hubbard
+    from pauxy_jax.models.trial import (free_electron_trial,
                                         spin_project_init, uhf_trial)
-    from pauxy_tpu.utils.transfer import to_host
+    from pauxy_jax.utils.transfer import to_host
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = uhf_trial(ham, ueff=0.4, ninitial=2, nconv=2000, seed=3)
@@ -268,10 +268,10 @@ def test_spin_project_init_free_electron_ueg_pwfft():
     diagonal sp_eigv (review finding, round 3)."""
     import numpy as np
 
-    from pauxy_tpu.models import make_ueg, rhf_identity_trial
-    from pauxy_tpu.models.pw_fft import make_pw_fft
-    from pauxy_tpu.models.trial import spin_project_init, trial_from_orbitals
-    from pauxy_tpu.utils.transfer import to_host
+    from pauxy_jax.models import make_ueg, rhf_identity_trial
+    from pauxy_jax.models.pw_fft import make_pw_fft
+    from pauxy_jax.models.trial import spin_project_init, trial_from_orbitals
+    from pauxy_jax.utils.transfer import to_host
 
     ham = make_ueg(nup=2, ndown=2, rs=1.0, ecut=1.0)
     trial = rhf_identity_trial(ham)
@@ -298,8 +298,8 @@ def test_spin_proj_json_option(tmp_path):
     """The spin_proj trial option is honored through setup_calculation."""
     import numpy as np
 
-    from pauxy_tpu.qmc.calc import setup_calculation
-    from pauxy_tpu.utils.transfer import to_host
+    from pauxy_jax.qmc.calc import setup_calculation
+    from pauxy_jax.utils.transfer import to_host
 
     opts = {
         "verbosity": 0,
@@ -327,9 +327,9 @@ def test_fully_spin_polarized_systems(tmp_path):
     and ETotal is exactly the filled-sea energy on both HS paths."""
     import numpy as np
 
-    from pauxy_tpu.models import (free_electron_trial, make_hubbard,
+    from pauxy_jax.models import (free_electron_trial, make_hubbard,
                                   make_ueg, rhf_identity_trial)
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_hubbard(nup=3, ndown=0, U=4.0, nx=3, ny=3)
     e_exact = np.sort(np.linalg.eigvalsh(np.asarray(ham.T)[0]))[:3].sum()
@@ -351,9 +351,9 @@ def test_fully_spin_polarized_systems(tmp_path):
     assert np.isfinite(rows.real).all()
 
     # FFT half-rotated energy == dense gather energy on the same state.
-    from pauxy_tpu.estimators import local_energy as le
-    from pauxy_tpu.ops import greens
-    from pauxy_tpu.walkers import init_walkers
+    from pauxy_jax.estimators import local_energy as le
+    from pauxy_jax.ops import greens
+    from pauxy_jax.walkers import init_walkers
 
     state = init_walkers(t, 3)
     sga = greens.greens_function(state.phia, t.psia)

@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.models.pw_fft import make_pw_fft
-from pauxy_tpu.models.ueg import make_ueg
-from pauxy_tpu.models.trial import trial_from_orbitals
-from pauxy_tpu.propagation import continuous
-from pauxy_tpu.propagation.planewave import make_planewave
-from pauxy_tpu.propagation.pw_fft import make_pw_fft_inner
-from pauxy_tpu.walkers import init_walkers
+from pauxy_jax.models.pw_fft import make_pw_fft
+from pauxy_jax.models.ueg import make_ueg
+from pauxy_jax.models.trial import trial_from_orbitals
+from pauxy_jax.propagation import continuous
+from pauxy_jax.propagation.planewave import make_planewave
+from pauxy_jax.propagation.pw_fft import make_pw_fft_inner
+from pauxy_jax.walkers import init_walkers
 
 
 def build_pair(nup=7, ndown=7, rs=1.0, ecut=1.0):
@@ -70,9 +70,9 @@ def test_system_tables_match():
 
 @pytest.mark.unit
 def test_local_energy_matches_dense_ueg():
-    from pauxy_tpu.estimators.local_energy import (local_energy_pw_fft,
+    from pauxy_jax.estimators.local_energy import (local_energy_pw_fft,
                                                    local_energy_ueg)
-    from pauxy_tpu.ops.greens import greens_function
+    from pauxy_jax.ops.greens import greens_function
 
     ueg, pw, perm, qperm = build_pair()
     tr_u, tr_p = occupied_trials(ueg, pw, perm)
@@ -98,7 +98,7 @@ def test_local_energy_matches_dense_ueg():
     np.testing.assert_allclose(np.asarray(pe_p), np.asarray(pe_u), atol=1e-9)
 
     # Host dense version agrees too (used for etrial at build time).
-    from pauxy_tpu.estimators.local_energy import local_energy_G_host
+    from pauxy_jax.estimators.local_energy import local_energy_G_host
 
     g0 = np.stack([np.asarray(ga_p.G[0]), np.asarray(gb_p.G[0])])
     eh, keh, peh = local_energy_G_host(pw, g0)
@@ -108,7 +108,7 @@ def test_local_energy_matches_dense_ueg():
 
 @pytest.mark.unit
 def test_force_bias_and_vhs_match_dense_ueg():
-    from pauxy_tpu.ops.greens import greens_function
+    from pauxy_jax.ops.greens import greens_function
 
     ueg, pw, perm, qperm = build_pair()
     tr_u, tr_p = occupied_trials(ueg, pw, perm)
@@ -162,7 +162,7 @@ def test_force_bias_and_vhs_match_dense_ueg():
 
 @pytest.mark.driver
 def test_pw_fft_driver_runs(tmp_path, monkeypatch):
-    from pauxy_tpu.qmc.calc import setup_calculation
+    from pauxy_jax.qmc.calc import setup_calculation
 
     monkeypatch.chdir(tmp_path)
     drv = setup_calculation({

@@ -11,7 +11,7 @@ E = -5.38331344 +/- 0.0014386 Ha, Simons benchmark -5.3819 +/- 0.0006).
 import numpy as np
 import pytest
 
-from pauxy_tpu.utils.sgto import (hydrogen_chain, hydrogen_chain_afqmc,
+from pauxy_jax.utils.sgto import (hydrogen_chain, hydrogen_chain_afqmc,
                                   rhf, uhf)
 
 
@@ -64,7 +64,7 @@ def test_pipeline_trial_energy_consistency():
     energy on the ortho-AO/Cholesky Hamiltonian — one identity spanning
     the integrals, the Lowdin transform, the Cholesky factorization, and
     the Generic local-energy kernel."""
-    from pauxy_tpu.models.trial import trial_from_orbitals
+    from pauxy_jax.models.trial import trial_from_orbitals
 
     ham, psi, e_uhf = hydrogen_chain_afqmc(4, 1.6)
     trial = trial_from_orbitals(ham, psi)
@@ -75,9 +75,9 @@ def test_pipeline_trial_energy_consistency():
 def test_h4_afqmc_vs_fci(tmp_path):
     """Phaseless AFQMC on the H4 chain lands on the in-repo FCI energy
     (small constrained-path bias allowed)."""
-    from pauxy_tpu.estimators import ci
-    from pauxy_tpu.models.trial import trial_from_orbitals
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.estimators import ci
+    from pauxy_jax.models.trial import trial_from_orbitals
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham, psi, _ = hydrogen_chain_afqmc(4, 1.6)
     trial = trial_from_orbitals(ham, psi)
@@ -99,8 +99,8 @@ def test_h10_anchor(tmp_path):
     chain, R=1.6 a0, STO-6G, UHF trial, 100 walkers, dt=0.005
     (examples/generic/01-simple). Published anchor -5.38331344 +/-
     0.0014386 Ha; a shorter run here, compared at 4 combined sigma."""
-    from pauxy_tpu.models.trial import trial_from_orbitals
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.models.trial import trial_from_orbitals
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham, psi, e_uhf = hydrogen_chain_afqmc(10, 1.6)
     assert e_uhf == pytest.approx(-5.2562816, abs=1e-5)
@@ -132,8 +132,8 @@ def test_dump_afqmc_file_workflow(tmp_path):
     import json
     import os
 
-    from pauxy_tpu.qmc.calc import setup_calculation
-    from pauxy_tpu.utils.sgto import dump_afqmc
+    from pauxy_jax.qmc.calc import setup_calculation
+    from pauxy_jax.utils.sgto import dump_afqmc
 
     f = dump_afqmc(4, 1.6, prefix=str(tmp_path), nblocks=20)
     opts = json.load(open(f))
@@ -155,7 +155,7 @@ def test_dump_afqmc_file_workflow(tmp_path):
 def test_he_atom_energy():
     """He STO-6G RHF: the zeta=1.69 Slater expectation zeta^2 - 3.375 zeta
     = -2.84765 up to the 6-Gaussian fit error."""
-    from pauxy_tpu.utils.sgto import molecule
+    from pauxy_jax.utils.sgto import molecule
 
     bas, q, c, enuc = molecule([("He", (0, 0, 0))])
     e, _, _ = rhf(bas, q, c, 1, enuc=enuc)
@@ -166,12 +166,12 @@ def test_he_atom_energy():
 @pytest.mark.driver
 def test_hehp_afqmc_vs_fci(tmp_path):
     """HeH+ (2 electrons, 2 orbitals): phaseless AFQMC must land on FCI."""
-    from pauxy_tpu.estimators import ci
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.trial import trial_from_orbitals
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
-    from pauxy_tpu.utils.from_pyscf import cholesky_from_eri
-    from pauxy_tpu.utils.sgto import molecule, ortho_ao_hamiltonian, rhf
+    from pauxy_jax.estimators import ci
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.trial import trial_from_orbitals
+    from pauxy_jax.qmc import AFQMC, QMCOpts
+    from pauxy_jax.utils.from_pyscf import cholesky_from_eri
+    from pauxy_jax.utils.sgto import molecule, ortho_ao_hamiltonian, rhf
 
     bas, q, c, enuc = molecule([("He", (0, 0, 0)), ("H", (1.4632, 0, 0))])
     e_rhf, C, _ = rhf(bas, q, c, 1, enuc=enuc)
@@ -201,9 +201,9 @@ def test_h4_free_projection_converges_to_fci(tmp_path):
     """Free projection on the ab-initio H4 Hamiltonian converges to FCI
     without constraint bias (the molecular analogue of the Hubbard
     free-projection check, tests/test_ci.py)."""
-    from pauxy_tpu.estimators import ci
-    from pauxy_tpu.models.trial import trial_from_orbitals
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.estimators import ci
+    from pauxy_jax.models.trial import trial_from_orbitals
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham, psi, _ = hydrogen_chain_afqmc(4, 1.6)
     trial = trial_from_orbitals(ham, psi)
@@ -231,9 +231,9 @@ def test_h2_mo_basis_vs_reference_golden(tmp_path):
     autocorrelated). Golden: tests/data/h2_mo_r1.4.npz."""
     import os
 
-    from pauxy_tpu.models.trial import trial_from_orbitals
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
-    from pauxy_tpu.utils.sgto import molecule_afqmc
+    from pauxy_jax.models.trial import trial_from_orbitals
+    from pauxy_jax.qmc import AFQMC, QMCOpts
+    from pauxy_jax.utils.sgto import molecule_afqmc
 
     path = os.path.join(os.path.dirname(__file__), "data",
                         "h2_mo_r1.4.npz")

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import scipy.linalg
 
-from pauxy_tpu.models import make_hubbard, make_ueg
-from pauxy_tpu.models.thermal_trial import make_one_body_trial
-from pauxy_tpu.qmc import QMCOpts
-from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
+from pauxy_jax.models import make_hubbard, make_ueg
+from pauxy_jax.models.thermal_trial import make_one_body_trial
+from pauxy_jax.qmc import QMCOpts
+from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
 
 
 def exact_free_fermions(h, beta, mu):
@@ -152,7 +152,7 @@ def test_thermal_ueg_runs(tmp_path):
 def test_mean_field_trial():
     """THF trial: for U=0 it must coincide with the OneBody trial; for U>0
     the Fock matrix shifts mu and the target <N> is still met."""
-    from pauxy_tpu.models.thermal_trial import (
+    from pauxy_jax.models.thermal_trial import (
         make_mean_field_trial,
         make_one_body_trial,
     )
@@ -172,7 +172,7 @@ def test_mean_field_trial():
 
 @pytest.mark.driver
 def test_thermal_with_mean_field_trial(tmp_path):
-    from pauxy_tpu.models.thermal_trial import make_mean_field_trial
+    from pauxy_jax.models.thermal_trial import make_mean_field_trial
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = make_mean_field_trial(ham, 0.5, 0.05)
@@ -186,7 +186,7 @@ def test_thermal_with_mean_field_trial(tmp_path):
 def test_mean_field_trial_json_dispatch(tmp_path):
     """trial.name='mean_field' is honored through get_driver (the reference
     factory trial_density_matrices/utils.py:4; review finding, round 3)."""
-    from pauxy_tpu.qmc.calc import setup_calculation
+    from pauxy_jax.qmc.calc import setup_calculation
 
     options = {
         "verbosity": 0,
@@ -221,8 +221,8 @@ def test_thermal_discrete_ratio_is_exact_det_ratio():
     import jax
     import jax.numpy as jnp
 
-    from pauxy_tpu.propagation.thermal_discrete import make_thermal_discrete
-    from pauxy_tpu.walkers import thermal_state as tws
+    from pauxy_jax.propagation.thermal_discrete import make_thermal_discrete
+    from pauxy_jax.walkers import thermal_state as tws
 
     ham = make_hubbard(nup=2, ndown=2, U=4.0, nx=4, ny=1)
     beta, dt = 0.4, 0.05
@@ -374,7 +374,7 @@ def test_low_rank_update_vs_dense():
     import jax
     import jax.numpy as jnp
 
-    from pauxy_tpu.walkers import low_rank as lrw
+    from pauxy_jax.walkers import low_rank as lrw
 
     rng = np.random.default_rng(3)
     m, nslice, ss, nw = 12, 6, 2, 3
@@ -419,7 +419,7 @@ def test_low_rank_truncation_stable():
     errors stay at the threshold scale and nothing over/underflows."""
     import jax.numpy as jnp
 
-    from pauxy_tpu.walkers import low_rank as lrw
+    from pauxy_jax.walkers import low_rank as lrw
 
     rng = np.random.default_rng(5)
     m, nslice, ss, nw = 16, 20, 4, 2
@@ -468,7 +468,7 @@ def test_thermal_ueg_lowrank_anchor(tmp_path):
     by design)."""
     import os
 
-    from pauxy_tpu.qmc.calc import setup_calculation
+    from pauxy_jax.qmc.calc import setup_calculation
 
     path = os.path.join(os.path.dirname(__file__), "data",
                         "thermal_ueg_lowrank.npz")
@@ -511,12 +511,12 @@ def test_thermal_generic_vs_exact_grand_canonical(tmp_path):
     thermal_propagation/generic.py:11-167; untested there)."""
     import numpy as np
 
-    from pauxy_tpu.estimators import ci
-    from pauxy_tpu.models.generic import make_generic
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.qmc import QMCOpts
-    from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
-    from pauxy_tpu.utils.testing import generate_hamiltonian
+    from pauxy_jax.estimators import ci
+    from pauxy_jax.models.generic import make_generic
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.qmc import QMCOpts
+    from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
+    from pauxy_jax.utils.testing import generate_hamiltonian
 
     m = 4
     h1e, chol, enuc, _ = generate_hamiltonian(m, (2, 2), seed=5, nchol=8)
@@ -552,7 +552,7 @@ def test_thermal_generic_vs_exact_grand_canonical(tmp_path):
 def test_mean_field_find_mu_false():
     """find_mu=False keeps the given chemical potential fixed through the
     THF macro iteration (reference mean_field.py:24,46-52)."""
-    from pauxy_tpu.models.thermal_trial import make_mean_field_trial
+    from pauxy_jax.models.thermal_trial import make_mean_field_trial
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     mf = make_mean_field_trial(ham, 0.5, 0.05, mu=0.3, find_mu=False)
@@ -567,8 +567,8 @@ def test_thermal_fb_bound_option():
     """fb_bound: components with |xbar| > bound are rescaled to UNIT
     magnitude, exactly like the reference (planewave.py:249-261); the
     option is threaded through make_thermal_propagator."""
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.propagation.thermal import (clamp_force_bias,
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.propagation.thermal import (clamp_force_bias,
                                                make_thermal_propagator)
 
     xbar = np.array([0.5 + 0.0j, 2.0 + 0.0j, 0.0 + 0.0j, 3.0 + 4.0j])
@@ -656,8 +656,8 @@ def test_thermal_discrete_wrap_equals_recompute():
     exact because BH1 is proportional to the trial B_T slice."""
     import jax
 
-    from pauxy_tpu.propagation.thermal_discrete import make_thermal_discrete
-    from pauxy_tpu.walkers.thermal_state import init_thermal_walkers
+    from pauxy_jax.propagation.thermal_discrete import make_thermal_discrete
+    from pauxy_jax.walkers.thermal_state import init_thermal_walkers
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     trial = make_one_body_trial(ham, 1.0, 0.05)
@@ -682,7 +682,7 @@ def test_thermal_discrete_wrap_equals_recompute():
 def test_thermal_discrete_attractive_u_needs_charge():
     """Spin HS at U<0 has no real gamma: a clear error, not silent NaNs
     (the reference NaNs, thermal_propagation/hubbard.py:33-40)."""
-    from pauxy_tpu.propagation.thermal_discrete import make_thermal_discrete
+    from pauxy_jax.propagation.thermal_discrete import make_thermal_discrete
 
     ham = make_hubbard(nup=2, ndown=2, U=-4.0, nx=4, ny=1)
     trial = make_one_body_trial(ham, 0.4, 0.05, stack_size=2)

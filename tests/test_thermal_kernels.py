@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import scipy.linalg
 
-from pauxy_tpu.estimators import thermal
-from pauxy_tpu.ops import cpqr
+from pauxy_jax.estimators import thermal
+from pauxy_jax.ops import cpqr
 
 
 def rand_c(rng, *shape):
@@ -115,8 +115,8 @@ def test_entropy_vs_reference():
     sys.path.insert(0, "/root/reference")
     from pauxy.estimators.thermal import entropy as ref_entropy
 
-    from pauxy_tpu.estimators.thermal import entropy
-    from pauxy_tpu.models import make_hubbard
+    from pauxy_jax.estimators.thermal import entropy
+    from pauxy_jax.models import make_hubbard
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     h1 = np.asarray(ham.T)
@@ -132,10 +132,10 @@ def test_thermal_ehyb_ovlp_one_rdm(tmp_path):
     normalized: tr P = Nav per block."""
     import os, sys
 
-    from pauxy_tpu.models import make_hubbard
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.qmc import QMCOpts
-    from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
+    from pauxy_jax.models import make_hubbard
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.qmc import QMCOpts
+    from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     beta, dt = 0.5, 0.05
@@ -170,10 +170,10 @@ def test_thermal_average_gf(tmp_path):
     estimators must equal the exact grand-canonical values; with
     interactions the cyclic average must agree with the end-of-path value
     within statistics."""
-    from pauxy_tpu.models import make_hubbard
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.qmc import QMCOpts
-    from pauxy_tpu.qmc.thermal_afqmc import ThermalAFQMC
+    from pauxy_jax.models import make_hubbard
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.qmc import QMCOpts
+    from pauxy_jax.qmc.thermal_afqmc import ThermalAFQMC
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     beta, dt = 0.5, 0.05
@@ -197,17 +197,43 @@ def test_thermal_average_gf(tmp_path):
                - rows[False][1:, 10].real.mean()) < 0.2
 
 
+def _numpy_cpqr_swaps(a):
+    """Textbook column-pivoted Householder QR of one square matrix in
+    numpy: physical column swaps and a per-step rank-1 Q update, with the
+    same reflector convention (alpha = -phase(x0) |x|) as ops/cpqr."""
+    a = np.array(a, dtype=complex)
+    m = a.shape[-1]
+    r, q, perm = a.copy(), np.eye(m, dtype=complex), np.arange(m)
+    for k in range(m):
+        p = k + int(np.argmax(np.sum(np.abs(r[k:, k:]) ** 2, axis=0)))
+        r[:, [k, p]] = r[:, [p, k]]
+        perm[[k, p]] = perm[[p, k]]
+        x = np.zeros(m, complex)
+        x[k:] = r[k:, k]
+        x0 = x[k]
+        phase = x0 / abs(x0) if abs(x0) > 0 else 1.0
+        v = x.copy()
+        v[k] += phase * np.linalg.norm(x)
+        vsq = np.vdot(v, v).real
+        if vsq <= 1e-300:
+            continue
+        r -= np.outer(v, v.conj() @ r) * (2.0 / vsq)
+        q -= np.outer(q @ v, v.conj()) * (2.0 / vsq)
+    return q, np.triu(r), perm
+
+
 @pytest.mark.unit
 def test_cpqr_deferred_pivot_matches_swaps():
     """The WY/deferred-pivot default (_cpqr_xla) applies the exact same
-    reflection sequence as the textbook swaps loop: identical pivot order,
-    bit-level-close R, and Q equal to working precision."""
+    reflection sequence as the textbook swaps loop (a numpy float64
+    reference): identical pivot order, bit-level-close R, and Q equal to
+    working precision."""
     rng = np.random.default_rng(11)
     a = rand_c(rng, 4, 33, 33)
     a[1] *= np.logspace(0, -8, 33)[None, :]               # ill-conditioned
     ad = jnp.asarray(a)
     q1, r1, p1 = map(np.asarray, cpqr._cpqr_xla(ad))
-    q2, r2, p2 = map(np.asarray, cpqr._cpqr_xla_swaps(ad))
+    q2, r2, p2 = (np.stack(x) for x in zip(*map(_numpy_cpqr_swaps, a)))
     assert (p1 == p2).all()
     np.testing.assert_allclose(r1, r2, atol=1e-10)
     np.testing.assert_allclose(q1, q2, atol=1e-8)
@@ -251,10 +277,10 @@ def test_prefix_cached_propagation_matches_full_refold():
     is bit-identical to the legacy full re-stratification over all bins."""
     import jax
 
-    from pauxy_tpu.models import make_hubbard
-    from pauxy_tpu.models.thermal_trial import make_one_body_trial
-    from pauxy_tpu.propagation.thermal import make_thermal_propagator
-    from pauxy_tpu.walkers import thermal_state as tws
+    from pauxy_jax.models import make_hubbard
+    from pauxy_jax.models.thermal_trial import make_one_body_trial
+    from pauxy_jax.propagation.thermal import make_thermal_propagator
+    from pauxy_jax.walkers import thermal_state as tws
 
     ham = make_hubbard(nup=3, ndown=3, U=4.0, nx=3, ny=3)
     beta, dt = 1.0, 0.05

@@ -18,8 +18,8 @@ import h5py
 import numpy as np
 import pytest
 
-from pauxy_tpu.models import make_hubbard, free_electron_trial
-from pauxy_tpu.qmc import AFQMC, QMCOpts
+from pauxy_jax.models import make_hubbard, free_electron_trial
+from pauxy_jax.qmc import AFQMC, QMCOpts
 
 pytestmark = pytest.mark.driver
 

@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pauxy_tpu.estimators import local_energy as le
-from pauxy_tpu.models import make_ueg, rhf_identity_trial
-from pauxy_tpu.ops import greens
-from pauxy_tpu.propagation.planewave import make_planewave
-from pauxy_tpu.utils.testing import random_wavefunction
+from pauxy_jax.estimators import local_energy as le
+from pauxy_jax.models import make_ueg, rhf_identity_trial
+from pauxy_jax.ops import greens
+from pauxy_jax.propagation.planewave import make_planewave
+from pauxy_jax.utils.testing import random_wavefunction
 
 REFERENCE = "/root/reference"
 HAVE_REF = os.path.isdir(os.path.join(REFERENCE, "pauxy"))
@@ -61,7 +61,7 @@ def test_system_vs_reference():
     assert ham.ecore == pytest.approx(ref.ecore)
     # Sparse rho (scatter metadata) vs reference sparse chol_vecs
     # ([M^2, nq], column iq is rho_q raveled with rows kpq*M + i).
-    from pauxy_tpu.ops import ueg_sparse
+    from pauxy_jax.ops import ueg_sparse
 
     sp = ueg_sparse.make_sparse_rho(ham, np.float64)
     m, nq = ham.nbasis, ham.nq
@@ -174,7 +174,7 @@ def test_planewave_force_bias_and_vhs_vs_reference():
 
 @pytest.mark.driver
 def test_ueg_afqmc_runs(tmp_path):
-    from pauxy_tpu.qmc import AFQMC, QMCOpts
+    from pauxy_jax.qmc import AFQMC, QMCOpts
 
     ham = make_ueg(nup=2, ndown=2, rs=1.0, ecut=0.5)
     trial = rhf_identity_trial(ham)
@@ -191,7 +191,7 @@ def test_ueg_afqmc_runs(tmp_path):
 def test_sparse_vhs_gather_and_expectations():
     """assemble_vhs (q-map gather) and rho_expectations must match dense
     einsums against rho rebuilt from the same metadata."""
-    from pauxy_tpu.ops import ueg_sparse
+    from pauxy_jax.ops import ueg_sparse
 
     ham = make_ueg(nup=2, ndown=2, rs=1.0, ecut=0.5)
     sp = ueg_sparse.make_sparse_rho(ham, np.float64)
@@ -257,7 +257,7 @@ def test_ueg_fft_energy_nontrivial_trial():
     """Same check with a random (non-identity) single-det trial — the FFT
     path uses CT^dagger explicitly, so the half-rotation must not assume
     identity orbitals."""
-    from pauxy_tpu.models.trial import trial_from_orbitals
+    from pauxy_jax.models.trial import trial_from_orbitals
 
     ham = make_ueg(nup=3, ndown=3, rs=1.0, ecut=1.0)
     rng = np.random.default_rng(8)
@@ -284,10 +284,10 @@ def test_structure_factor_fft_matches_gather():
     import jax
     import jax.numpy as jnp
 
-    from pauxy_tpu.estimators import local_energy as le
-    from pauxy_tpu.models import make_ueg, rhf_identity_trial
-    from pauxy_tpu.ops import greens as gops
-    from pauxy_tpu.walkers import init_walkers
+    from pauxy_jax.estimators import local_energy as le
+    from pauxy_jax.models import make_ueg, rhf_identity_trial
+    from pauxy_jax.ops import greens as gops
+    from pauxy_jax.walkers import init_walkers
 
     ham = make_ueg(nup=7, ndown=7, rs=1.0, ecut=1.0)
     trial = rhf_identity_trial(ham)
@@ -309,7 +309,7 @@ def test_structure_factor_fft_matches_gather():
                                atol=1e-10)
 
     # Per-walker bra (the BP case): bra = phi_bp, ket = phi_old.
-    from pauxy_tpu.estimators.back_prop import (bp_greens_function,
+    from pauxy_jax.estimators.back_prop import (bp_greens_function,
                                                 bp_half_greens_function)
 
     bra_a = phia + 0.03 * jax.random.normal(jax.random.fold_in(key, 2),

@@ -19,7 +19,7 @@ def main(argv=None):
 
     import numpy as np
 
-    from pauxy_tpu.analysis import extraction
+    from pauxy_jax.analysis import extraction
 
     group, _, name = args.observable.partition(":")
     if group == "back_propagated" and "rdm" in name:

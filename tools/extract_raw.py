@@ -7,7 +7,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pauxy_tpu.analysis.extraction import extract_mixed_estimates  # noqa: E402
+from pauxy_jax.analysis.extraction import extract_mixed_estimates  # noqa: E402
 
 if __name__ == "__main__":
     data = extract_mixed_estimates(sys.argv[1])

@@ -27,7 +27,7 @@ def main(argv=None):
                         help="target particle number for the mu fit")
     args = parser.parse_args(argv)
 
-    from pauxy_tpu.analysis import thermal
+    from pauxy_jax.analysis import thermal
 
     files = []
     for f in args.filenames:

@@ -27,7 +27,7 @@ def main(argv=None):
                         help="number of blocks to skip (default 1)")
     args = parser.parse_args(argv)
 
-    from pauxy_tpu.analysis.rdm import average_rdm
+    from pauxy_jax.analysis.rdm import average_rdm
 
     files = []
     for f in args.filenames:

@@ -4,9 +4,9 @@ Usage:
     PYTHONPATH=/root/repo/tools/oracle:/root/reference python tools/oracle/make_golden.py <outdir>
 
 Produces, per config, an .npz with the trial orbitals used and the block
-ETotal series, so the TPU build can be compared statistically *with the
+ETotal series, so pauxy_jax can be compared statistically *with the
 identical trial wavefunction* (trajectories differ by design — RNG streams
-are per-walker counter-based on TPU, sequential host draws in the
+are counter-based jax.random keys here, sequential host draws in the
 reference).
 """
 

@@ -5,8 +5,8 @@ The oracle runs the read-only reference serially to generate golden
 validation data; its single native component cannot be compiled here (no
 Cython in the image), so this module implements the same functions in plain
 numpy and is injected as ``sys.modules['pauxy.estimators.ueg_kernels']``
-before pauxy imports it (see inject()). Test fixture only — the TPU build's
-own UEG kernels live in pauxy_tpu/estimators/local_energy.py.
+before pauxy imports it (see inject()). Test fixture only — pauxy_jax's
+own UEG kernels live in pauxy_jax/estimators/local_energy.py.
 """
 
 import math

@@ -23,8 +23,8 @@ def main(argv):
                    default="input.json")
     opts = p.parse_args(argv)
 
-    from pauxy_tpu.utils.from_pyscf import dump_pauxy
-    from pauxy_tpu.utils.io import write_input
+    from pauxy_jax.utils.from_pyscf import dump_pauxy
+    from pauxy_jax.utils.io import write_input
 
     dump_pauxy(chkfile=opts.input_scf, outfile=opts.output,
                chol_cut=opts.thresh, ortho_ao=opts.oao, wfn_file=opts.wfn)

@@ -21,7 +21,7 @@ def main(argv=None):
 
     import pandas as pd
 
-    from pauxy_tpu.analysis import blocking, extraction
+    from pauxy_jax.analysis import blocking, extraction
 
     if args.back_propagated:
         frames = [extraction.extract_bp_estimates(f, skip=args.skip)

@@ -23,7 +23,7 @@ def main():
         jax.config.update("jax_enable_x64", True)
     import numpy as np
 
-    from pauxy_tpu.qmc.calc import get_driver
+    from pauxy_jax.qmc.calc import get_driver
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
     inputs = sorted(glob.glob(os.path.join(root, "examples", "*", "input.json")))
@@ -42,7 +42,7 @@ def main():
                 # pipeline the H10 example uses. A bootstrap failure is a
                 # single-example FAIL, not an abort of the whole smoke run.
                 try:
-                    from pauxy_tpu.utils.sgto import dump_afqmc
+                    from pauxy_jax.utils.sgto import dump_afqmc
 
                     dump_afqmc(4, 1.6, prefix=".")
                 except Exception as e:  # noqa: BLE001 — CI smoke reporter

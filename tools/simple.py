@@ -12,7 +12,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import pandas as pd  # noqa: E402
 
-from pauxy_tpu.analysis import blocking  # noqa: E402
+from pauxy_jax.analysis import blocking  # noqa: E402
 
 if __name__ == "__main__":
     start_time = float(sys.argv[1])
